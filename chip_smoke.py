@@ -1,0 +1,626 @@
+#!/usr/bin/env python3
+"""Chip smoke test of the PyTorch/CUDA port (``src/repro_torch``) on one
+NVIDIA GPU.
+
+Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one
+CUDA card, ``nvcc`` (PATH or /usr/local/cuda/bin) and no network; it puts
+``src`` on ``sys.path`` itself and imports nothing of JAX or of the JAX
+package. Phases, each of which raises on a failed check (exit code 1):
+
+1. Header: the card's name and power limit (nvidia-smi), torch and CUDA
+   versions, and the time to build every CUDA kernel of the port (one
+   ``nvcc`` per source, all started together).
+2. Kernel checks: every kernel on the engine's path against its plain
+   PyTorch version on the card, at the main-path shapes of full-width
+   llama3.2-3b and at the edge geometries of the kernel tests; then its
+   time (median of CUDA-event timed runs, L2 flushed before each) beside
+   the plain version's, a library yardstick's
+   (``scaled_dot_product_attention`` on pre-gathered K/V, which the port
+   never calls) and the least time the card could take.
+3. Engine run at full width (llama3.2-3b, random bf16 weights from a
+   seeded generator): after a short warm-up run, 8 requests sharing a
+   1024-token prefix through the fused K=8 path with chunked prefill and
+   the prefix cache; a decode-only window of the same workload, timed and
+   then traced with torch.profiler (device time by kernel, idle share);
+   2 requests through the per-step path; then a teacher-forced comparison
+   of the kernel tier against the plain tier (prefill chunks + decode
+   steps). The launch counters are set to 0 just before each path and
+   read just after it.
+4. A ``{"kernels": [...]}`` line, the nvidia-smi line, and last
+   ``{"ok": true, "device": {...}}``.
+"""
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+SRC = ROOT / "src"
+
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
+BF16_FLOPS = 989e12            # dense tensor-core bf16, H100 SXM data sheet
+# relative-to-output-scale tolerances of kernel vs plain version:
+# bf16 -- the output is rounded to bf16 (2^-8 relative) and the plain
+# prefill rounds probabilities to bf16 before the PV product;
+# f32 -- both accumulate in fp32 in different orders over up to ~2k terms
+TOL = {"bfloat16": 2e-2, "float32": 1e-4}
+# logits of the kernel tier vs the plain tier at full width: the same
+# bf16 ulp-level differences in every attention output, carried through
+# 28 residual layers and the 128256-wide head
+LOGITS_TOL = 5e-2
+
+
+def rel_err(out, ref):
+    """(max |out - ref| / max |ref|, max |out - ref|) of two tensors."""
+    d = (out.float() - ref.float()).abs().max().item()
+    return d / max(ref.float().abs().max().item(), 1e-6), d
+
+
+def fail(msg: str) -> None:
+    raise SystemExit(f"chip_smoke: FAIL: {msg}")
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        fail(msg)
+
+
+def nvidia_smi_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout
+    return out.strip().splitlines()[0]
+
+
+# ---------------------------------------------------------------------------
+# phase 2: kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+class Kernels:
+    def __init__(self, torch, dev):
+        self.torch = torch
+        self.dev = dev
+        self.gen = torch.Generator(device=dev).manual_seed(1234)
+        self.flush_buf = torch.empty(64 * 2 ** 20, dtype=torch.uint8,
+                                     device=dev)
+
+    def randn(self, *shape, dtype):
+        t = self.torch
+        return t.randn(*shape, generator=self.gen, device=self.dev,
+                       dtype=t.float32).to(dtype)
+
+    def time_ms(self, fn, n=25, warmup=3):
+        """Median over ``n`` runs of one call, each timed with CUDA events
+        after an L2 flush (the engine meets every layer's pages cold)."""
+        t = self.torch
+        for _ in range(warmup):
+            fn()
+        times = []
+        for _ in range(n):
+            self.flush_buf.zero_()
+            a = t.cuda.Event(enable_timing=True)
+            b = t.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            b.synchronize()
+            times.append(a.elapsed_time(b))
+        return statistics.median(times)
+
+    def pool(self, NP, page, KH, D, dtype):
+        return (self.randn(NP, page, KH, D, dtype=dtype),
+                self.randn(NP, page, KH, D, dtype=dtype))
+
+    def tables(self, B, PPS, NP):
+        """Distinct random pages per sequence (page 0 is the trash page)."""
+        t = self.torch
+        perm = t.randperm(NP - 1, generator=self.gen, device=self.dev) + 1
+        return perm[:B * PPS].reshape(B, PPS).to(t.int32).contiguous()
+
+
+def decode_case(K, *, B, H, KH, D, page, PPS, lens, Kt, tails, dtype):
+    t = K.torch
+    NP = B * PPS + 1
+    q = K.randn(B, H, D, dtype=dtype)
+    kp, vp = K.pool(NP, page, KH, D, dtype)
+    tables = K.tables(B, PPS, NP)
+    cl = t.tensor(lens, dtype=t.int32, device=K.dev)
+    kt = K.randn(B, Kt, KH, D, dtype=dtype)
+    vt = K.randn(B, Kt, KH, D, dtype=dtype)
+    tl = t.tensor(tails, dtype=t.int32, device=K.dev)
+    return dict(q=q, kp=kp, vp=vp, tables=tables, cl=cl, kt=kt, vt=vt, tl=tl)
+
+
+def run_kernel_checks(torch, dev):
+    from repro_torch.kernels.flash_attention.ops import paged_flash_prefill
+    from repro_torch.kernels.flash_attention.ref import (
+        paged_prefill_attention_ref)
+    from repro_torch.kernels.paged_attention.ops import (
+        fused_decode_attention, paged_attention)
+    from repro_torch.kernels.paged_attention.ref import (
+        fused_decode_attention_ref, gather_kv, paged_attention_ref)
+    F = torch.nn.functional
+    K = Kernels(torch, dev)
+    bf16, f32 = torch.bfloat16, torch.float32
+    results = {}
+
+    def compare(name, out, ref, dtype, label):
+        rel, absd = rel_err(out, ref)
+        ok = rel <= TOL[str(dtype).split(".")[-1]]
+        print(f"  {name:24s} {label:48s} rel_err={rel:.3e} abs={absd:.3e}"
+              f" {'ok' if ok else 'FAIL'}")
+        check(bool(torch.isfinite(out.float()).all()), f"{name} {label}: "
+              "non-finite output")
+        check(ok, f"{name} {label}: kernel disagrees with its plain version")
+        return absd
+
+    print("phase 2: kernels vs plain PyTorch versions")
+    # -- decode: main-path shape (llama3.2-3b, 8 slots, page 64, Kt = 8) --
+    main = dict(B=8, H=24, KH=8, D=128, page=64, PPS=64, Kt=8,
+                lens=[1, 64, 65, 1000, 2047, 1536, 1100, 700],
+                tails=[0, 1, 2, 3, 5, 6, 7, 8])
+    edges = [
+        dict(B=2, H=56, KH=8, D=128, page=16, PPS=4, Kt=3, lens=[16, 33],
+             tails=[1, 3], dtype=bf16, label="G=7 (yi 56q/8kv)"),
+        dict(B=2, H=8, KH=8, D=64, page=16, PPS=2, Kt=1, lens=[16, 20],
+             tails=[1, 1], dtype=bf16, label="G=1 MHA, ctx%page==0"),
+        dict(B=3, H=8, KH=2, D=64, page=32, PPS=1, Kt=5, lens=[7, 32, 0],
+             tails=[5, 0, 0], dtype=bf16, label="single page, empty context"),
+        dict(B=8, H=24, KH=8, D=128, page=64, PPS=64, Kt=8,
+             lens=main["lens"], tails=main["tails"], dtype=f32,
+             label="main shape, f32"),
+        dict(B=2, H=56, KH=8, D=128, page=16, PPS=4, Kt=3, lens=[0, 48],
+             tails=[0, 2], dtype=f32, label="G=7, empty row, f32"),
+    ]
+    c = decode_case(K, dtype=bf16, **main)
+    args = (c["q"], c["kp"], c["vp"], c["tables"], c["cl"])
+    targs = args + (c["kt"], c["vt"], c["tl"])
+    err_pa = compare("paged_attention", paged_attention(*args),
+                     paged_attention_ref(*args), bf16, "main shape, bf16")
+    err_fd = compare("fused_decode_attention", fused_decode_attention(*targs),
+                     fused_decode_attention_ref(*targs), bf16,
+                     "main shape, bf16")
+    for e in edges:
+        e = dict(e)
+        dtype, label = e.pop("dtype"), e.pop("label")
+        ce = decode_case(K, dtype=dtype, **e)
+        a = (ce["q"], ce["kp"], ce["vp"], ce["tables"], ce["cl"])
+        ta = a + (ce["kt"], ce["vt"], ce["tl"])
+        compare("paged_attention", paged_attention(*a),
+                paged_attention_ref(*a), dtype, label)
+        compare("fused_decode_attention", fused_decode_attention(*ta),
+                fused_decode_attention_ref(*ta), dtype, label)
+    torch.cuda.synchronize()
+
+    # times and bounds at the main decode shape
+    B, H, KH, D, Kt = 8, 24, 8, 128, 8
+    G = H // KH
+    ctx = sum(main["lens"])
+    tail = sum(main["tails"])
+    pages_read = sum(-(-n // 64) for n in main["lens"])
+    io = 2 * B * H * D * 2 + pages_read * 4 + 3 * B * 4
+
+    def decode_bound(n_pos):
+        nbytes = io + n_pos * KH * D * 2 * 2
+        flops = n_pos * KH * G * D * 4
+        t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
+        return max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations"
+
+    # library yardstick: SDPA on the pre-gathered context (+ tail)
+    S = 64 * 64
+    kg = gather_kv(c["kp"], c["tables"]).transpose(1, 2).contiguous()
+    vg = gather_kv(c["vp"], c["tables"]).transpose(1, 2).contiguous()
+    pos = torch.arange(S, device=dev)
+    mask_ctx = (pos[None, :] < c["cl"][:, None])[:, None, None, :]
+    qs = c["q"][:, :, None, :]
+    kgt = torch.cat([kg, c["kt"].transpose(1, 2)], dim=2).contiguous()
+    vgt = torch.cat([vg, c["vt"].transpose(1, 2)], dim=2).contiguous()
+    tpos = torch.arange(Kt, device=dev)
+    mask_tail = torch.cat(
+        [mask_ctx, (tpos[None, :] < c["tl"][:, None])[:, None, None, :]],
+        dim=-1)
+    lib_pa = K.time_ms(lambda: F.scaled_dot_product_attention(
+        qs, kg, vg, attn_mask=mask_ctx, enable_gqa=True))
+    lib_fd = K.time_ms(lambda: F.scaled_dot_product_attention(
+        qs, kgt, vgt, attn_mask=mask_tail, enable_gqa=True))
+    b_pa, by_pa = decode_bound(ctx)
+    b_fd, by_fd = decode_bound(ctx + tail)
+    results["paged_attention"] = dict(
+        max_abs_err=err_pa, ms=K.time_ms(lambda: paged_attention(*args)),
+        plain_ms=K.time_ms(lambda: paged_attention_ref(*args)),
+        bound_ms=b_pa, bound_by=by_pa, library_ms=lib_pa)
+    results["fused_decode_attention"] = dict(
+        max_abs_err=err_fd, ms=K.time_ms(lambda: fused_decode_attention(*targs)),
+        plain_ms=K.time_ms(lambda: fused_decode_attention_ref(*targs)),
+        bound_ms=b_fd, bound_by=by_fd, library_ms=lib_fd)
+    del kg, vg, kgt, vgt
+
+    # -- prefill: 512-token chunks at q_start 0, 1000 (straddles pages) and
+    # 1024 (the main path: the tail after a cached 1024-token prefix) --
+    def prefill_case(B, C, H, KH, D, page, PPS, start, dtype):
+        NP = B * PPS + 1
+        q = K.randn(B, C, H, D, dtype=dtype)
+        kp, vp = K.pool(NP, page, KH, D, dtype)
+        return q, kp, vp, K.tables(B, PPS, NP), start, start + C
+
+    pcases = [
+        (dict(B=1, C=512, H=24, KH=8, D=128, page=64, PPS=64, start=0,
+              dtype=bf16), "C=512 at 0, bf16"),
+        (dict(B=1, C=512, H=24, KH=8, D=128, page=64, PPS=64, start=1000,
+              dtype=bf16), "C=512 at 1000 (straddles pages), bf16"),
+        (dict(B=2, C=8, H=56, KH=8, D=128, page=16, PPS=2, start=8,
+              dtype=bf16), "G=7, tiny chunk, bf16"),
+        (dict(B=1, C=5, H=4, KH=1, D=64, page=16, PPS=1, start=0,
+              dtype=f32), "MQA, single page, f32"),
+        (dict(B=1, C=512, H=24, KH=8, D=128, page=64, PPS=64, start=1024,
+              dtype=f32), "C=512 at 1024, f32"),
+    ]
+    for kw, label in pcases:
+        a = prefill_case(**kw)
+        compare("paged_flash_prefill", paged_flash_prefill(*a),
+                paged_prefill_attention_ref(*a), kw["dtype"], label)
+    pm = prefill_case(B=1, C=512, H=24, KH=8, D=128, page=64, PPS=64,
+                      start=1024, dtype=bf16)
+    err_pf = compare("paged_flash_prefill", paged_flash_prefill(*pm),
+                     paged_prefill_attention_ref(*pm), bf16,
+                     "main: C=512 at 1024, bf16")
+    C, start = 512, 1024
+    kv_len = start + C
+    pairs = sum(start + i + 1 for i in range(C)) * G * KH
+    flops = pairs * 4 * D
+    nbytes = 2 * C * H * D * 2 + kv_len * KH * D * 2 * 2 \
+        + -(-kv_len // 64) * 4
+    t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
+    qsd = pm[0].transpose(1, 2)                           # (1, H, C, D)
+    kpg = gather_kv(pm[1], pm[3])[:, :kv_len].transpose(1, 2).contiguous()
+    vpg = gather_kv(pm[2], pm[3])[:, :kv_len].transpose(1, 2).contiguous()
+    kpos = torch.arange(kv_len, device=dev)
+    qpos = start + torch.arange(C, device=dev)
+    pmask = kpos[None, :] <= qpos[:, None]
+    results["paged_flash_prefill"] = dict(
+        max_abs_err=err_pf, ms=K.time_ms(lambda: paged_flash_prefill(*pm)),
+        plain_ms=K.time_ms(lambda: paged_prefill_attention_ref(*pm)),
+        bound_ms=max(t_b, t_f) * 1e3,
+        bound_by="bytes" if t_b >= t_f else "operations",
+        library_ms=K.time_ms(lambda: F.scaled_dot_product_attention(
+            qsd, kpg, vpg, attn_mask=pmask, enable_gqa=True)))
+    torch.cuda.synchronize()
+    for name, r in results.items():
+        print(f"  time {name:24s} kernel {r['ms']:.4f} ms  plain "
+              f"{r['plain_ms']:.4f} ms  sdpa {r['library_ms']:.4f} ms  "
+              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+    return results
+
+
+# ---------------------------------------------------------------------------
+# phase 3: the engine at full width
+# ---------------------------------------------------------------------------
+
+def make_requests(n, prefix_len, tail_lens, max_tokens, vocab, seed):
+    import numpy as np
+    from repro_torch.serving.request import InferenceRequest, SamplingParams
+    rng = np.random.default_rng(seed)
+    prefix = rng.integers(2, vocab, size=prefix_len).tolist()
+    out = []
+    for i in range(n):
+        samp = dict(temperature=0.0) if i % 2 == 0 \
+            else dict(temperature=0.8, top_p=0.9)
+        out.append(InferenceRequest(
+            model="llama3.2-3b", request_id=f"r{i}",
+            prompt_tokens=prefix + rng.integers(
+                2, vocab, size=int(tail_lens[i])).tolist(),
+            sampling=SamplingParams(max_tokens=max_tokens, seed=100 + i,
+                                    **samp)))
+    return out
+
+
+def drive(torch, engine, reqs):
+    """Run the engine to completion, timing each step on the host clock
+    (every step ends in a device->host sync of its sampled ids). Returns
+    (outputs, prefill seconds, decode-only seconds, decode-only tokens)."""
+    for r in reqs:
+        engine.add_request(r)
+    outs, t_prefill, t_decode, n_decode = [], 0.0, 0.0, 0
+    while engine.has_work():
+        p0 = engine.stats["prefill_tokens"]
+        d0 = engine.stats["decode_tokens"]
+        t0 = time.perf_counter()
+        outs += engine.step()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        if engine.stats["prefill_tokens"] > p0:
+            t_prefill += dt
+        else:
+            t_decode += dt
+            n_decode += engine.stats["decode_tokens"] - d0
+    return outs, t_prefill, t_decode, n_decode
+
+
+def kernel_group(name: str) -> str:
+    """Coarse class of a device activity, by its name."""
+    n = name.lower()
+    if "paged_decode_kernel" in n or "paged_prefill_kernel" in n:
+        return "port attention kernels"
+    if "memcpy" in n or "memset" in n:
+        return "copies"
+    if any(s in n for s in ("gemm", "nvjet", "cutlass", "xmma", "cublas")):
+        return "matmuls"
+    return "other (elementwise, reductions, sort, indexing)"
+
+
+def profile_decode(torch, engine, reqs, steps=2):
+    """A decode-only window with every request running: ``steps`` engine
+    steps (each one fused call of K decode steps) timed on the host clock,
+    then as many traced with torch.profiler for device time by kernel. The
+    device's idle share is 1 - device busy time / the UNtraced window's
+    wall time, which keeps the tracer's own host overhead out."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for r in reqs:
+        engine.add_request(r)
+    for _ in range(100):
+        if len(engine.running) == len(reqs) and not engine.prefilling \
+                and not engine.slots.dirty:
+            break
+        engine.step()
+    check(len(engine.running) == len(reqs), "profile: requests not running")
+    K = engine.cfg.decode_steps_per_sync
+
+    def window():
+        d0 = engine.stats["decode_tokens"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            engine.step()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, engine.stats["decode_tokens"] - d0
+
+    wall, n_tok = window()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, n_tok2 = window()
+    check(n_tok == n_tok2 == steps * K * len(reqs),
+          f"profile: {n_tok}/{n_tok2} tokens, expected {steps * K * len(reqs)}")
+    n_steps = steps * K
+    by_group, by_name = {}, {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = e.time_range.elapsed_us()
+        by_name[e.name] = by_name.get(e.name, 0.0) + us
+        g = kernel_group(e.name)
+        by_group[g] = by_group.get(g, 0.0) + us
+    busy_ms = sum(by_group.values()) / 1e3 / n_steps
+    wall_ms = wall * 1e3 / n_steps
+    print(f"  decode window: {len(reqs)} sequences, {n_steps} decode steps "
+          f"(K={K}): {wall_ms:.3f} ms a step on the host clock, "
+          f"{n_tok / wall:.1f} tokens/s")
+    if not by_group:
+        print("  device time by kernel: not measured (the profiler saw no "
+              "device activity)")
+        return {"decode_window_tok_s": n_tok / wall,
+                "decode_step_wall_ms": wall_ms,
+                "decode_step_device_ms": None, "device_idle_share": None}
+    idle = 1.0 - busy_ms / wall_ms
+    print(f"  device busy {busy_ms:.3f} ms a step: idle share {idle:.3f}")
+    for g, us in sorted(by_group.items(), key=lambda kv: -kv[1]):
+        print(f"    {g:48s} {us / 1e3 / n_steps:8.3f} ms a step")
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
+        print(f"    top: {us / 1e3 / n_steps:8.3f} ms  {name[:90]}")
+    return {"decode_window_tok_s": n_tok / wall,
+            "decode_step_wall_ms": wall_ms, "decode_step_device_ms": busy_ms,
+            "device_idle_share": idle,
+            "device_ms_by_group": {g: us / 1e3 / n_steps
+                                   for g, us in by_group.items()}}
+
+
+def run_engine(torch, dev):
+    import numpy as np
+    from repro_torch.configs import REGISTRY
+    from repro_torch.kernels import _build
+    from repro_torch.models import make_model
+    from repro_torch.serving import backends
+    from repro_torch.serving.backends import PagedBackend
+    from repro_torch.serving.engine import (ContinuousBatchingEngine,
+                                            EngineConfig)
+
+    cfg = REGISTRY["llama3.2-3b"]
+    print(f"phase 3: engine at full width: {cfg.name} L={cfg.num_layers} "
+          f"d={cfg.d_model} H={cfg.num_heads}/{cfg.num_kv_heads} "
+          f"hd={cfg.head_dim} ff={cfg.d_ff} V={cfg.vocab_size} "
+          f"{cfg.param_dtype}")
+    model = make_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init_params(torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    print(f"  random weights in {time.perf_counter() - t0:.1f} s")
+    ecfg = dict(backend="paged", use_kernel=True, page_size=64, max_slots=8,
+                max_seq_len=4096, enable_prefix_cache=True,
+                chunked_prefill_budget=512, decode_steps_per_sync=8)
+    V = cfg.vocab_size
+
+    # -- warm-up (cuBLAS handles, allocator pools, first launches), so the
+    # main run's host-clock metrics are not a measurement of set-up --
+    warm = ContinuousBatchingEngine(model, params, EngineConfig(**ecfg),
+                                    device=dev)
+    drive(torch, warm, make_requests(2, 300, [40, 90], 9, V, seed=9))
+    del warm
+
+    # -- main path: fused K=8 decode, chunked prefill, prefix cache --
+    tails = np.linspace(64, 512, 8).astype(int)
+    reqs = make_requests(8, 1024, tails, 64, V, seed=0)
+    eng = ContinuousBatchingEngine(model, params, EngineConfig(**ecfg),
+                                   device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    backends.reset_transfer_stats()
+    _build.reset_launches()
+    outs, t_pf, t_dec, n_dec = drive(torch, eng, reqs)
+    fused_launches = dict(_build.LAUNCHES)
+    transfers = dict(backends.TRANSFER_STATS)
+    print(f"  fused path launches {fused_launches} transfers {transfers}")
+    check(len(outs) == 8, f"{len(outs)} of 8 requests finished")
+    for o in outs:
+        check(o.finish_reason == "length" and len(o.output_tokens) == 64,
+              f"{o.request_id}: {o.finish_reason} after "
+              f"{len(o.output_tokens)} tokens, expected length after 64")
+        check(all(0 <= t < V for t in o.output_tokens),
+              f"{o.request_id}: token id out of range")
+    check(transfers["decode_logits_transfers"] == 0,
+          "the fused path moved logits to the host")
+    stats = eng.cache_stats()
+    check(stats["hit_tokens"] > 0, "no prefix-cache hits")
+    check(fused_launches["paged_flash_prefill"] > 0,
+          "paged_flash_prefill never launched on the main path")
+    check(fused_launches["fused_decode_attention"] > 0,
+          "fused_decode_attention never launched on the main path")
+    ttft = sorted(o.metrics.ttft for o in outs)
+    metrics = {
+        "prefill_tokens": eng.stats["prefill_tokens"],
+        "cached_prompt_tokens": eng.stats["cached_prompt_tokens"],
+        "prefill_tok_s": eng.stats["prefill_tokens"] / t_pf,
+        "decode_tok_s": n_dec / t_dec if t_dec else float("nan"),
+        "ttft_p50_s": statistics.median(ttft),
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+        "decode_syncs": eng.stats["decode_syncs"],
+    }
+    print(f"  prefill {metrics['prefill_tokens']} tokens "
+          f"({metrics['cached_prompt_tokens']} more from the prefix cache) "
+          f"in steps taking {t_pf:.3f} s: "
+          f"{metrics['prefill_tok_s']:.1f} tokens/s")
+    print(f"  decode-only steps: {n_dec} tokens in {t_dec:.3f} s: "
+          f"{metrics['decode_tok_s']:.1f} tokens/s; "
+          f"TTFT p50 {metrics['ttft_p50_s']:.3f} s; peak memory "
+          f"{metrics['peak_mem_gib']:.2f} GiB")
+    del eng
+    torch.cuda.empty_cache()
+    metrics.update(profile_decode(
+        torch, ContinuousBatchingEngine(model, params, EngineConfig(**ecfg),
+                                        device=dev),
+        make_requests(8, 1024, tails, 64, V, seed=3)))
+    torch.cuda.empty_cache()
+
+    # -- per-step path: fused_decode=False (paged_attention kernel) --
+    reqs2 = make_requests(2, 300, [40, 90], 16, V, seed=1)
+    eng2 = ContinuousBatchingEngine(
+        model, params, EngineConfig(**dict(ecfg, fused_decode=False)),
+        device=dev)
+    _build.reset_launches()
+    outs2, _, _, _ = drive(torch, eng2, reqs2)
+    step_launches = dict(_build.LAUNCHES)
+    print(f"  per-step path launches {step_launches}")
+    check(len(outs2) == 2 and all(len(o.output_tokens) == 16 for o in outs2),
+          "per-step path: requests did not finish with 16 tokens")
+    check(step_launches["paged_attention"] > 0,
+          "paged_attention never launched on the per-step path")
+    del eng2
+    torch.cuda.empty_cache()
+
+    # -- teacher-forced: kernel tier vs plain tier on the same state --
+    bk = [PagedBackend(model, params, max_slots=2, max_len=4096, page_size=64,
+                       use_kernel=uk, device=dev) for uk in (True, False)]
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(2, V, size=n).tolist() for n in (700, 530)]
+    worst = 0.0
+    tok = np.zeros((2,), np.int64)
+    for sid, pr in enumerate(prompts):
+        logits = []
+        for b in bk:
+            task = b.start_prefill(f"s{sid}", pr)
+            lg = None
+            while lg is None:
+                lg, _ = b.prefill_chunk(task, 512)
+            logits.append(lg)
+        rel, _ = rel_err(logits[0], logits[1])
+        worst = max(worst, rel)
+        tok[sid] = int(logits[0].argmax())
+        print(f"  teacher-forced prefill s{sid} ({len(pr)} tokens, 512-token "
+              f"chunks): logits rel_err {rel:.3e}")
+    agree = 0
+    steps = 16
+    for i in range(steps):
+        lk = bk[0].decode_batch(tok)
+        lp = bk[1].decode_batch(tok)
+        rel = float(np.abs(lk - lp).max() / max(np.abs(lp).max(), 1e-6))
+        worst = max(worst, rel)
+        agree += int((lk.argmax(-1) == lp.argmax(-1)).sum())
+        tok = lk.argmax(-1)
+    share = agree / (2 * steps)
+    print(f"  teacher-forced decode: {steps} steps x 2 sequences, worst "
+          f"logits rel_err {worst:.3e} (tolerance {LOGITS_TOL}); greedy "
+          f"tokens that match: {share:.3f}")
+    check(worst <= LOGITS_TOL, "kernel tier logits disagree with the plain "
+          "tier")
+    metrics["teacher_forced_rel_err"] = worst
+    metrics["greedy_match_share"] = share
+    launches = dict(fused_launches,
+                    paged_attention=step_launches["paged_attention"])
+    return launches, metrics
+
+
+def main() -> int:
+    if not (SRC / "repro_torch").is_dir():
+        fail(f"{SRC / 'repro_torch'} not found: run from a checkout")
+    import torch
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False: no CUDA device")
+    sys.path.insert(0, str(SRC))
+    from repro_torch.kernels import _build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    smi = nvidia_smi_line()
+    print("phase 1: header")
+    print(f"  card: {smi}")
+    print(f"  torch {torch.__version__} cuda {torch.version.cuda} "
+          f"python {sys.version.split()[0]}")
+    t0 = time.perf_counter()
+    _build.build()
+    build_s = time.perf_counter() - t0
+    print(f"  kernel build: {build_s:.1f} s for {list(_build.SOURCES)}")
+    for name, log in _build.BUILD_LOG.items():
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"    {name}: {line.strip()}")
+
+    timing = run_kernel_checks(torch, dev)
+    launches, metrics = run_engine(torch, dev)
+
+    replaces = {
+        "paged_attention": ("src/repro_torch/csrc/paged_attention.cu",
+                            "src/repro/kernels/paged_attention/kernel.py:81"),
+        "fused_decode_attention": (
+            "src/repro_torch/csrc/paged_attention.cu",
+            "src/repro/kernels/paged_attention/kernel.py:187"),
+        "paged_flash_prefill": (
+            "src/repro_torch/csrc/paged_prefill.cu",
+            "src/repro/kernels/flash_attention/kernel.py:135"),
+    }
+    # launches: paged_attention from the per-step path, the other two from
+    # the fused main path
+    kernels = []
+    for name, (source, repl) in replaces.items():
+        r = timing[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": repl,
+            "launches": launches[name],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    print(json.dumps({"metrics": metrics, "build_s": build_s}))
+    print(json.dumps({"kernels": kernels}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

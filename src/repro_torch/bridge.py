@@ -1,0 +1,43 @@
+"""Parameter bridge: the JAX package's parameter tree, as numpy, to the
+port's tensors.
+
+The caller converts the JAX tree to numpy itself (the parity tests call
+``jax.tree.map(np.asarray, params)``), so the port never sees a JAX array.
+Keys and layouts are kept as they are: ``embed`` (V, d), ``layers.*``
+stacked on a leading L axis, ``final_norm``, optional ``lm_head`` (d, V),
+and every projection in the reference's ``(in, out)`` layout, applied as
+``x @ w`` by :mod:`repro_torch.models.layers` -- no transposes anywhere.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def params_from_jax_numpy(tree, cfg, device, dtype=None):
+    """Nested dict of numpy arrays -> the same nested dict of tensors on
+    ``device`` in ``dtype`` (default: ``cfg.param_dtype``). bfloat16
+    leaves (numpy's ml_dtypes extension type) go through float32, which
+    holds them exactly."""
+    dtype = dtype or getattr(torch, cfg.param_dtype)
+
+    def conv(x):
+        if isinstance(x, dict):
+            return {k: conv(v) for k, v in x.items()}
+        arr = np.array(x, dtype=np.float32)       # a writable copy
+        return torch.from_numpy(arr).to(device=device, dtype=dtype)
+
+    out = conv(dict(tree))
+    missing = {"embed", "layers", "final_norm"} - set(out)
+    if missing:
+        raise KeyError(f"parameter tree lacks {sorted(missing)}")
+    if not cfg.tie_embeddings and "lm_head" not in out:
+        raise KeyError("untied config but the tree has no 'lm_head'")
+    return out
+
+
+def params_to_numpy(params):
+    """Inverse of :func:`params_from_jax_numpy`, as float32 numpy."""
+    if isinstance(params, dict):
+        return {k: params_to_numpy(v) for k, v in params.items()}
+    return params.detach().float().cpu().numpy()

@@ -1,0 +1,17 @@
+"""granite-34b — dense llama-arch code model with MQA (kv=1).
+88L d6144 48H d_ff 24576 vocab 49152. [arXiv:2405.04324; hf]
+"""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="granite-34b",
+    family="dense",
+    num_layers=88,
+    d_model=6144,
+    num_heads=48,
+    num_kv_heads=1,
+    head_dim=128,
+    d_ff=24576,
+    vocab_size=49152,
+    source="arXiv:2405.04324; hf",
+)

@@ -1,0 +1,18 @@
+"""phi3.5-moe-42b-a6.6b — MoE, 16 experts top-2. 32L d4096 32H (kv=8) d_ff 6400
+vocab 32064. [hf:microsoft/Phi-3.5-MoE-instruct; hf]
+"""
+from repro_torch.configs.base import ModelConfig, MoEConfig
+
+CONFIG = ModelConfig(
+    name="phi3.5-moe-42b-a6.6b",
+    family="moe",
+    num_layers=32,
+    d_model=4096,
+    num_heads=32,
+    num_kv_heads=8,
+    head_dim=128,
+    d_ff=6400,
+    vocab_size=32064,
+    moe=MoEConfig(num_experts=16, top_k=2),
+    source="hf:microsoft/Phi-3.5-MoE-instruct; hf",
+)

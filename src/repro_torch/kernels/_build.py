@@ -1,0 +1,118 @@
+"""Build and load the port's CUDA C++ kernels.
+
+Each ``src/repro_torch/csrc/<name>.cu`` has a plain C interface. On first
+use it is compiled with ``nvcc`` for ``sm_90a`` into a shared library under
+``build/repro_torch_kernels/`` in the checkout (listed in ``.gitignore``),
+named by a hash of its source and flags so an edited source rebuilds, and
+loaded with ``ctypes``. Nothing here runs at import time, and nothing here
+is reached for CPU tensors: the CPU tests never need ``nvcc``.
+
+Every C entry returns ``cudaGetLastError()`` after its launch;
+:func:`check` raises on anything but 0. ``LAUNCHES`` counts launches per
+kernel wrapper, so a run can show that the main path went through the
+kernels.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
+SOURCES = ("paged_attention", "paged_prefill")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+NVCC_TIMEOUT_S = 600
+
+# launches per kernel wrapper; incremented only where a kernel is launched
+LAUNCHES = {"paged_attention": 0, "fused_decode_attention": 0,
+            "paged_flash_prefill": 0}
+# source name -> nvcc's output (register / shared-memory use from ptxas)
+BUILD_LOG: dict[str, str] = {}
+_LIBS: dict[str, ctypes.CDLL] = {}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found (PATH or /usr/local/cuda/bin): the "
+                           "port's CUDA kernels cannot be built")
+    return path
+
+
+def _paths(name: str) -> tuple[Path, Path]:
+    src = CSRC / f"{name}.cu"
+    digest = hashlib.sha256(src.read_bytes()
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return src, BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def build(names=SOURCES) -> None:
+    """Compile every named source that has no up-to-date library, one
+    ``nvcc`` per source, all started together. Raises on a failed build."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    jobs = []
+    for name in names:
+        src, lib = _paths(name)
+        if lib.exists():
+            continue
+        tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+        proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+                                stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        jobs.append((name, proc, tmp, lib))
+    failed = []
+    for name, proc, tmp, lib in jobs:
+        try:
+            out, _ = proc.communicate(timeout=NVCC_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out, _ = proc.communicate()
+            out += f"\nnvcc timed out after {NVCC_TIMEOUT_S} s"
+        BUILD_LOG[name] = out
+        if proc.returncode != 0:
+            failed.append(f"{name}:\n{out}")
+            continue
+        os.replace(tmp, lib)
+    if failed:
+        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built on first use."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        build([name])
+        lib = ctypes.CDLL(str(_paths(name)[1]))
+        getattr(lib, f"{name}_error_string").restype = ctypes.c_char_p
+        getattr(lib, f"{name}_error_string").argtypes = [ctypes.c_int]
+        _LIBS[name] = lib
+    return lib
+
+
+def check(lib_name: str, entry: str, code: int) -> None:
+    """Raise if a C entry reported a CUDA error."""
+    if code != 0:
+        msg = getattr(_LIBS[lib_name], f"{lib_name}_error_string")(code)
+        raise RuntimeError(f"{entry}: CUDA error {code} "
+                           f"({msg.decode() if msg else 'unknown'})")
+
+
+def bind(lib: ctypes.CDLL, entry: str, n_ptr: int, n_int: int):
+    """Set argtypes for an entry taking ``n_ptr`` pointers, ``n_int`` ints
+    and the stream (pointers and stream as c_void_p, ints as c_int)."""
+    fn = getattr(lib, entry)
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fn

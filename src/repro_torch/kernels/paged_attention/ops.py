@@ -1,0 +1,124 @@
+"""Public wrappers for the paged decode kernels (``csrc/paged_attention.cu``).
+
+Same signatures and layouts as the JAX package's
+``repro/kernels/paged_attention/ops.py``: q is (B, H, D) with H = KH * G
+query heads grouped over KH kv heads, pages are (NP, page_size, KH, D),
+block tables (B, PPS), lengths (B,).
+
+Dispatch is by the tensors' device and nothing else: CPU tensors run the
+plain PyTorch version in ``ref.py``; CUDA tensors launch the hand-written
+kernel or raise -- there is no fallback from a kernel to its plain
+version. The wrapper checks device, dtype, shape and contiguity, allocates
+the output, and launches on the current stream without synchronising.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.paged_attention.ref import (
+    fused_decode_attention_ref, paged_attention_ref)
+
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+HEAD_DIMS = (64, 128)
+
+
+def _group(q, KH: int) -> int:
+    H = q.shape[1]
+    if H % KH:
+        raise ValueError(
+            f"query heads ({H}) must be a multiple of kv heads ({KH})")
+    return H // KH
+
+
+def _check(q, k_pages, v_pages, block_tables, context_lens, extra=()):
+    """Validate what the CUDA kernel takes; returns (B, KH, G, D, page,
+    PPS, dtype code)."""
+    tensors = (q, k_pages, v_pages, block_tables, context_lens, *extra)
+    dev = q.device
+    for t in tensors:
+        if t.device != dev:
+            raise ValueError(f"all inputs must be on {dev}, got {t.device}")
+        if not t.is_contiguous():
+            raise ValueError("the CUDA kernel takes contiguous tensors only")
+    if q.dtype not in _DTYPE_CODE:
+        raise TypeError(f"unsupported dtype {q.dtype} (float32 or bfloat16)")
+    if k_pages.dtype != q.dtype or v_pages.dtype != q.dtype:
+        raise TypeError("q and the page pools must share one dtype")
+    if block_tables.dtype != torch.int32 or context_lens.dtype != torch.int32:
+        raise TypeError("block tables and lengths must be int32")
+    if q.dim() != 3 or k_pages.dim() != 4 or k_pages.shape != v_pages.shape:
+        raise ValueError("q must be (B, H, D), pages (NP, page, KH, D)")
+    B, _, D = q.shape
+    NP, page, KH, Dk = k_pages.shape
+    if Dk != D or D not in HEAD_DIMS:
+        raise ValueError(f"head dim {D} (pages {Dk}); the kernel takes "
+                         f"{HEAD_DIMS}")
+    if page % 16:
+        raise ValueError(f"page size {page} is not a multiple of 16")
+    if block_tables.dim() != 2 or block_tables.shape[0] != B \
+            or context_lens.shape != (B,):
+        raise ValueError("block tables must be (B, PPS), lengths (B,)")
+    G = _group(q, KH)
+    return B, KH, G, D, page, block_tables.shape[1], _DTYPE_CODE[q.dtype]
+
+
+def paged_attention(q, k_pages, v_pages, block_tables, context_lens):
+    """Decode attention over a paged KV cache.
+
+    q: (B, H, D) one query token per sequence; k_pages / v_pages:
+    (NP, page_size, KH, D); block_tables: (B, PPS) int32 page ids (pad with
+    0 beyond the length); context_lens: (B,) int32. Returns (B, H, D).
+    """
+    _group(q, k_pages.shape[2])
+    if q.device.type == "cpu":
+        return paged_attention_ref(q, k_pages, v_pages, block_tables,
+                                   context_lens)
+    B, KH, G, D, page, pps, code = _check(q, k_pages, v_pages, block_tables,
+                                          context_lens)
+    out = torch.empty_like(q)
+    lib = _build.library("paged_attention")
+    fn = _build.bind(lib, "paged_attention_fwd", 6, 7)
+    rc = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            block_tables.data_ptr(), context_lens.data_ptr(), out.data_ptr(),
+            B, KH, G, D, page, pps, code,
+            torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check("paged_attention", "paged_attention_fwd", rc)
+    _build.LAUNCHES["paged_attention"] += 1
+    return out
+
+
+def fused_decode_attention(q, k_pages, v_pages, block_tables, context_lens,
+                           k_tail, v_tail, tail_lens):
+    """Decode attention over committed pages + an in-flight tail buffer.
+
+    Position ``b`` attends pages ``[0, context_lens[b])`` plus tail rows
+    ``[0, tail_lens[b])`` of k_tail/v_tail: (B, Kt, KH, D), under one
+    softmax. Shapes otherwise as :func:`paged_attention`. Returns (B, H, D).
+    """
+    _group(q, k_pages.shape[2])
+    if q.device.type == "cpu":
+        return fused_decode_attention_ref(q, k_pages, v_pages, block_tables,
+                                          context_lens, k_tail, v_tail,
+                                          tail_lens)
+    B, KH, G, D, page, pps, code = _check(
+        q, k_pages, v_pages, block_tables, context_lens,
+        extra=(k_tail, v_tail, tail_lens))
+    if k_tail.dtype != q.dtype or v_tail.dtype != q.dtype \
+            or tail_lens.dtype != torch.int32:
+        raise TypeError("tails must share q's dtype; tail lengths int32")
+    if k_tail.dim() != 4 or k_tail.shape != v_tail.shape \
+            or k_tail.shape[0] != B or k_tail.shape[2:] != (KH, D) \
+            or tail_lens.shape != (B,) or k_tail.shape[1] < 1:
+        raise ValueError("tails must be (B, Kt >= 1, KH, D), lengths (B,)")
+    out = torch.empty_like(q)
+    lib = _build.library("paged_attention")
+    fn = _build.bind(lib, "paged_decode_tail_fwd", 9, 8)
+    rc = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            block_tables.data_ptr(), context_lens.data_ptr(),
+            k_tail.data_ptr(), v_tail.data_ptr(), tail_lens.data_ptr(),
+            out.data_ptr(), B, KH, G, D, page, pps, k_tail.shape[1], code,
+            torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check("paged_attention", "paged_decode_tail_fwd", rc)
+    _build.LAUNCHES["fused_decode_attention"] += 1
+    return out

@@ -1,0 +1,94 @@
+"""Plain PyTorch versions of the paged decode kernels.
+
+They follow the KERNELS' semantics: scores in float32, masked positions
+contribute nothing, and the result is ``acc / max(l, 1e-30)`` -- so a row
+with no valid position (empty context and empty tail) is zeros. (The JAX
+package's jnp oracle ``paged_attention_ref`` softmaxes such a row to a
+uniform average instead; its Pallas kernels, which these mirror, give
+zeros.) The CPU path of every wrapper in ``ops.py`` runs these, and the
+card checks hold the CUDA kernels against them.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+NEG_INF = -1e30
+
+
+def gather_kv(pages, block_tables):
+    """pages: (NP, page, KH, D); block_tables: (B, PPS) ->
+    (B, PPS*page, KH, D)."""
+    g = pages[block_tables.long()]                   # (B, PPS, page, KH, D)
+    B, PPS, page, KH, D = g.shape
+    return g.reshape(B, PPS * page, KH, D)
+
+
+def _masked_attention(qr, segments):
+    """qr: (B, KH, G, D) float32, already scaled. segments: list of
+    (k (B, S, KH, D), v, valid (B, S) bool). One softmax over all
+    segments' valid positions; zeros where none is valid."""
+    scores = [torch.einsum("bhgd,bkhd->bhgk", qr, k.float())
+              for k, _, _ in segments]
+    masks = [valid[:, None, None, :] for _, _, valid in segments]
+    s = torch.cat([torch.where(mk, sc, NEG_INF)
+                   for sc, mk in zip(scores, masks)], dim=-1)
+    mask = torch.cat([mk.expand_as(sc) for sc, mk in zip(scores, masks)],
+                     dim=-1)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.where(mask, torch.exp(s - m), 0.0)
+    l = p.sum(dim=-1, keepdim=True)
+    out, s0 = 0.0, 0
+    for k, v, _ in segments:
+        n = k.shape[1]
+        out = out + torch.einsum("bhgk,bkhd->bhgd", p[..., s0:s0 + n],
+                                 v.float())
+        s0 += n
+    return out / torch.clamp(l, min=1e-30)
+
+
+def decode_tail_attention_ref(q, k_ctx, v_ctx, context_lens, k_tail, v_tail,
+                              tail_lens):
+    """Decode attention over a contiguous committed context plus an
+    in-flight tail, under one softmax.
+
+    q: (B, H, D); k_ctx/v_ctx: (B, S, KH, D) (``[0, context_lens[b])``
+    valid); k_tail/v_tail: (B, Kt, KH, D) (``[0, tail_lens[b])`` valid).
+    Equals attention over the contiguous positions
+    ``[0, context_lens[b] + tail_lens[b])``. Returns (B, H, D).
+    """
+    B, H, D = q.shape
+    KH = k_ctx.shape[2]
+    qr = q.reshape(B, KH, H // KH, D).float() * (1.0 / math.sqrt(D))
+    dev = q.device
+    ctx_ok = torch.arange(k_ctx.shape[1], device=dev)[None, :] \
+        < context_lens.long()[:, None]
+    tail_ok = torch.arange(k_tail.shape[1], device=dev)[None, :] \
+        < tail_lens.long()[:, None]
+    out = _masked_attention(qr, [(k_ctx, v_ctx, ctx_ok),
+                                 (k_tail, v_tail, tail_ok)])
+    return out.reshape(B, H, D).to(q.dtype)
+
+
+def paged_attention_ref(q, k_pages, v_pages, block_tables, context_lens):
+    """Single-token decode attention over a paged KV cache.
+    q: (B, H, D); pages: (NP, page, KH, D); block_tables: (B, PPS);
+    context_lens: (B,). Returns (B, H, D)."""
+    B, H, D = q.shape
+    KH = k_pages.shape[2]
+    k = gather_kv(k_pages, block_tables)
+    v = gather_kv(v_pages, block_tables)
+    qr = q.reshape(B, KH, H // KH, D).float() * (1.0 / math.sqrt(D))
+    ok = torch.arange(k.shape[1], device=q.device)[None, :] \
+        < context_lens.long()[:, None]
+    return _masked_attention(qr, [(k, v, ok)]).reshape(B, H, D).to(q.dtype)
+
+
+def fused_decode_attention_ref(q, k_pages, v_pages, block_tables,
+                               context_lens, k_tail, v_tail, tail_lens):
+    """Plain version of the fused decode-tail kernel: gather pages, then
+    split attention. Same signature as ``ops.fused_decode_attention``."""
+    return decode_tail_attention_ref(
+        q, gather_kv(k_pages, block_tables), gather_kv(v_pages, block_tables),
+        context_lens, k_tail, v_tail, tail_lens)

@@ -1,0 +1,227 @@
+"""Shared neural building blocks: norms, RoPE, attention, SwiGLU MLP, and
+parameter initializers (the port of ``repro/models/layers.py``).
+
+Plain functions on tensors over nested-dict parameters. Weights keep the
+reference's ``(in, out)`` layout and are applied as ``x @ w``, so a bridged
+JAX parameter tree needs no transposes. Activations are computed in the
+dtype of the inputs; norms, RoPE and attention scores in float32.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+NEG_INF = -1e30
+
+
+# ---------------------------------------------------------------------------
+# init helpers
+# ---------------------------------------------------------------------------
+
+def dense_init(generator: torch.Generator, shape, scale=None,
+               dtype=torch.float32):
+    """Truncated normal in [-2, 2] times ``scale`` (default
+    ``1/sqrt(fan_in)``, fan_in = ``shape[-2]``), on the generator's device.
+    Same shapes and scales as the reference; the values come from the torch
+    generator, so they are not the reference's bits."""
+    fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
+    scale = scale if scale is not None else 1.0 / math.sqrt(fan_in)
+    w = torch.empty(shape, dtype=torch.float32, device=generator.device)
+    torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=generator)
+    return (w * scale).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# norms
+# ---------------------------------------------------------------------------
+
+def rms_norm(x, weight, eps=1e-5):
+    dt = x.dtype
+    xf = x.float()
+    var = xf.square().mean(dim=-1, keepdim=True)
+    out = xf * torch.rsqrt(var + eps)
+    return (out * weight.float()).to(dt)
+
+
+# ---------------------------------------------------------------------------
+# RoPE: interleaved pairs (2i, 2i+1) rotate together -- NOT the half-split
+# rotation most PyTorch code uses; it must match the reference bit layout
+# ---------------------------------------------------------------------------
+
+def rope(x, positions, theta=10000.0):
+    """x: (..., S, H, D); positions: (..., S) integer."""
+    d = x.shape[-1]
+    half = d // 2
+    idx = torch.arange(half, dtype=torch.float32, device=x.device)
+    freqs = theta ** (-idx / half)                                # (half,)
+    ang = positions.float()[..., None] * freqs                    # (..., S, half)
+    cos = torch.cos(ang)[..., None, :]                            # (..., S, 1, half)
+    sin = torch.sin(ang)[..., None, :]
+    x1 = x[..., 0::2].float()
+    x2 = x[..., 1::2].float()
+    o1 = x1 * cos - x2 * sin
+    o2 = x1 * sin + x2 * cos
+    return torch.stack([o1, o2], dim=-1).reshape(x.shape).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# attention (plain PyTorch)
+# ---------------------------------------------------------------------------
+
+def chunked_attention(q, k, v, *, causal=True, q_offset=0, kv_len=None,
+                      q_chunk=512):
+    """Masked softmax attention, one block of ``q_chunk`` queries at a time.
+
+    q: (B, Sq, H, D); k, v: (B, Sk, KH, D) with H % KH == 0 (GQA).
+    ``q_offset``: absolute position of q[0] (chunked prefill);
+    ``kv_len``: (B,) tensor or int of valid kv positions (padded cache).
+    Scores in float32; probabilities are cast to v's dtype before the PV
+    product and accumulated in float32, as the reference does. Returns
+    (B, Sq, H, D) in q's dtype.
+    """
+    B, Sq, H, D = q.shape
+    Sk, KH = k.shape[1], k.shape[2]
+    G = H // KH
+    scale = 1.0 / math.sqrt(D)
+    dev = q.device
+    kf, vf = k.float(), v.float()
+    kpos = torch.arange(Sk, device=dev)
+    if kv_len is None:
+        lens = torch.full((B,), Sk, device=dev)
+    else:
+        lens = torch.as_tensor(kv_len, device=dev).expand(B)
+    valid = (kpos[None, :] < lens[:, None])[:, None, None, None, :]
+    outs = []
+    for s0 in range(0, Sq, q_chunk):
+        c = min(q_chunk, Sq - s0)
+        qb = q[:, s0:s0 + c].reshape(B, c, KH, G, D).float()
+        s = torch.einsum("bqhgd,bkhd->bhgqk", qb, kf) * scale
+        mask = valid
+        if causal:
+            qpos = q_offset + s0 + torch.arange(c, device=dev)
+            mask = mask & (kpos[None, :] <= qpos[:, None])
+        s = torch.where(mask, s, NEG_INF)
+        m = s.amax(dim=-1, keepdim=True)
+        p = torch.exp(s - m)
+        l = p.sum(dim=-1, keepdim=True)
+        o = torch.einsum("bhgqk,bkhd->bhgqd", p.to(v.dtype).float(), vf)
+        o = o / torch.clamp(l, min=1e-30)
+        outs.append(o.permute(0, 3, 1, 2, 4).reshape(B, c, H, D))
+    return torch.cat(outs, dim=1).to(q.dtype)
+
+
+def decode_attention_appended(q, k_cache, v_cache, k_new, v_new, *,
+                              prev_len):
+    """Single-token attention over (existing cache) + (the new token's kv),
+    without writing the new kv into the cache first.
+
+    q: (B, 1, H, D); caches: (B, KH, Smax, D) kv-heads-major;
+    k_new/v_new: (B, KH, D); prev_len: (B,) valid positions before this
+    token. Returns (B, 1, H, D).
+    """
+    B, _, H, D = q.shape
+    KH, Smax = k_cache.shape[1], k_cache.shape[2]
+    G = H // KH
+    scale = 1.0 / math.sqrt(D)
+    qr = q.reshape(B, KH, G, D).float()
+    s = torch.einsum("bhgd,bhkd->bhgk", qr, k_cache.float()) * scale
+    pos = torch.arange(Smax, device=q.device)
+    mask = pos[None, :] < prev_len[:, None]
+    s = torch.where(mask[:, None, None, :], s, NEG_INF)
+    s_new = torch.einsum("bhgd,bhd->bhg", qr, k_new.float()) * scale
+    m = torch.maximum(s.amax(dim=-1), s_new)
+    p = torch.exp(s - m[..., None])
+    p_new = torch.exp(s_new - m)
+    denom = p.sum(dim=-1) + p_new
+    out = torch.einsum("bhgk,bhkd->bhgd", p.to(v_cache.dtype).float(),
+                       v_cache.float())
+    out = out + p_new[..., None] * v_new[:, :, None, :].float()
+    out = out / denom[..., None]
+    return out.reshape(B, 1, H, D).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# attention layer: projections + rope
+# ---------------------------------------------------------------------------
+
+def init_attention(generator, cfg, dtype, num_stacked):
+    """Attention weights stacked on a leading layer axis of
+    ``num_stacked``."""
+    d, qd, kvd, L = cfg.d_model, cfg.q_dim, cfg.kv_dim, num_stacked
+    p = {
+        "wq": dense_init(generator, (L, d, qd), dtype=dtype),
+        "wk": dense_init(generator, (L, d, kvd), dtype=dtype),
+        "wv": dense_init(generator, (L, d, kvd), dtype=dtype),
+        "wo": dense_init(generator, (L, qd, d),
+                         scale=1.0 / math.sqrt(qd * 2 * cfg.num_layers),
+                         dtype=dtype),
+    }
+    if cfg.qkv_bias:
+        dev = generator.device
+        p["bq"] = torch.zeros((L, qd), dtype=dtype, device=dev)
+        p["bk"] = torch.zeros((L, kvd), dtype=dtype, device=dev)
+        p["bv"] = torch.zeros((L, kvd), dtype=dtype, device=dev)
+    return p
+
+
+def project_qkv(x, p, cfg, positions):
+    """QKV projections + RoPE. x: (B, S, D) ->
+    q (B,S,H,hd), k (B,S,KH,hd), v (B,S,KH,hd)."""
+    B, S, _ = x.shape
+    H, KH, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    q = x @ p["wq"]
+    k = x @ p["wk"]
+    v = x @ p["wv"]
+    if cfg.qkv_bias:
+        q = q + p["bq"]
+        k = k + p["bk"]
+        v = v + p["bv"]
+    q = q.reshape(B, S, H, hd)
+    k = k.reshape(B, S, KH, hd)
+    v = v.reshape(B, S, KH, hd)
+    if cfg.causal or not cfg.is_encoder:
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def attention_layer(x, p, cfg, *, positions, cache=None, cache_index=None,
+                    return_kv=False):
+    """x: (B, S, D). Without a cache (prefill): causal self-attention, and
+    with ``return_kv`` the second result is the rope'd (k, v) pair. With a
+    cache (decode, S == 1): cache = dict(k, v) of (B, KH, Smax, hd) and
+    cache_index (B,) lengths before this token; the second result is the
+    new token's (k, v) vectors, for the caller to write once."""
+    B, S, _ = x.shape
+    H, hd = cfg.num_heads, cfg.head_dim
+    q, k, v = project_qkv(x, p, cfg, positions)
+    if cache is None:
+        out = chunked_attention(q, k, v, causal=cfg.causal)
+        new_cache = (k, v) if return_kv else None
+    else:
+        out = decode_attention_appended(q, cache["k"], cache["v"], k[:, 0],
+                                        v[:, 0], prev_len=cache_index)
+        new_cache = (k[:, 0], v[:, 0])
+    return out.reshape(B, S, H * hd) @ p["wo"], new_cache
+
+
+# ---------------------------------------------------------------------------
+# SwiGLU MLP
+# ---------------------------------------------------------------------------
+
+def init_mlp(generator, d_model, d_ff, num_layers, dtype, num_stacked):
+    L = num_stacked
+    return {
+        "w1": dense_init(generator, (L, d_model, d_ff), dtype=dtype),
+        "w3": dense_init(generator, (L, d_model, d_ff), dtype=dtype),
+        "w2": dense_init(generator, (L, d_ff, d_model),
+                         scale=1.0 / math.sqrt(d_ff * 2 * num_layers),
+                         dtype=dtype),
+    }
+
+
+def mlp_layer(x, p):
+    h = F.silu(x @ p["w1"]) * (x @ p["w3"])
+    return h @ p["w2"]

@@ -1,0 +1,552 @@
+"""Paged serving backend (the port of ``PagedBackend`` in the JAX package's
+``repro/serving/backends.py``).
+
+A vLLM-style paged KV pool with block tables, for the dense attention
+family. The pools are two tensors (L, num_pages, page_size, KH, hd) on the
+backend's device, updated IN PLACE (``index_put_``) where the reference
+rebuilt immutable arrays; the host-side allocator is
+:class:`~repro_torch.serving.kv_cache.PagedKVCache`.
+
+Two decode paths, as in the reference:
+
+* ``decode_batch(tokens)`` -- legacy host-driven step: one forward, the full
+  ``(max_slots, V)`` logits come back to the host and the engine samples
+  there (counted in ``TRANSFER_STATS``).
+* ``fused_decode(K, host_state)`` -- K decode steps as a Python loop of
+  torch ops on the device, each step fusing forward + seeded top-p sampling
+  + stop/length checks; only ``(K, max_slots)`` token ids and the
+  ``produced`` / ``done`` vectors cross to the host, once per call. Logits
+  never leave the device.
+
+``use_kernel`` picks the attention tier:
+
+* True: the hand-written kernels -- ``paged_flash_prefill`` for prefill
+  chunks, ``paged_attention`` for the legacy step, and in the fused loop
+  ``fused_decode_attention`` over committed pages plus (L, B, K, KH, hd)
+  tail buffers: nothing is written to the pool inside the K-loop and the
+  tails are committed with one scatter per call. On CPU tensors each
+  wrapper runs its kernel's plain version; on CUDA tensors it launches the
+  kernel or raises.
+* False: the plain versions directly (the reference tier), with the
+  per-step pool write of the reference's ``_fused_impl``.
+
+Not ported in this slice (they raise ``NotImplementedError``):
+speculative decoding (``spec_verify``) and swap preemption
+(``swap_out`` / ``swap_in``); tensor-parallel meshes.
+
+Prefill protocol, shared with the engine::
+
+  task = backend.start_prefill(seq_id, prompt)    # reserve slot/pages
+  logits, n = backend.prefill_chunk(task, budget) # compute <= budget tokens
+  ... repeat until logits is not None (prompt fully ingested) ...
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.kernels.flash_attention.ops import paged_flash_prefill
+from repro_torch.kernels.flash_attention.ref import paged_prefill_attention_ref
+from repro_torch.kernels.paged_attention.ops import (fused_decode_attention,
+                                                     paged_attention)
+from repro_torch.kernels.paged_attention.ref import (
+    fused_decode_attention_ref, paged_attention_ref)
+from repro_torch.models import LM
+from repro_torch.models.layers import mlp_layer, project_qkv, rms_norm
+from repro_torch.models.transformer import _block, layer_params
+from repro_torch.serving.kv_cache import OutOfPages, PagedKVCache
+from repro_torch.serving.sampler import fold_seeds, sample_from_logits
+
+ATTENTION_FAMILIES = ("dense",)
+
+# -- host-transfer accounting -------------------------------------------------
+# The fused decode path's contract is that logits never cross to the host;
+# every logits device->host conversion in this module goes through
+# ``_logits_to_host`` so tests can assert the fused path performs none.
+TRANSFER_STATS = {"decode_logits_transfers": 0, "decode_logits_bytes": 0}
+
+
+def reset_transfer_stats() -> None:
+    TRANSFER_STATS["decode_logits_transfers"] = 0
+    TRANSFER_STATS["decode_logits_bytes"] = 0
+
+
+def _logits_to_host(x) -> np.ndarray:
+    out = x.detach().float().cpu().numpy()
+    TRANSFER_STATS["decode_logits_transfers"] += 1
+    TRANSFER_STATS["decode_logits_bytes"] += out.nbytes
+    return out
+
+
+def _upload_state(host_state: dict, device) -> dict:
+    """Per-slot decode state to the device (a copy). uint32 seed bases
+    travel as int64: torch has no complete uint32 op set."""
+    out = {}
+    for k, v in host_state.items():
+        arr = np.array(v)
+        if arr.dtype == np.uint32:
+            arr = arr.astype(np.int64)
+        out[k] = torch.from_numpy(arr).to(device)
+    return out
+
+
+def _sample_and_latch(st, logits, tokens, n_gen, done, produced, live):
+    """Device-side sample + stop/limit latch for one fused decode step.
+    ``live`` slots take the sampled token and advance; a live slot hitting
+    its stop token or generation limit latches ``done`` and freezes from
+    the next step on."""
+    seeds = fold_seeds(st["seed_base"], n_gen)
+    sampled = sample_from_logits(logits, st["temps"], st["top_ps"], seeds)
+    tokens = torch.where(live, sampled, tokens)
+    step = live.to(torch.int32)
+    n_gen = n_gen + step
+    hit_stop = (st["stop_tok"] >= 0) & (sampled == st["stop_tok"])
+    done = done | (live & (hit_stop | (n_gen >= st["gen_limit"])))
+    produced = produced + step
+    return tokens, n_gen, done, produced
+
+
+def _chunk_layer(h, lp, cfg, positions, write_attend):
+    """One transformer layer of a prefill chunk: ``write_attend(q, k, v)
+    -> attn_out`` writes the chunk's KV into the cache and attends."""
+    B, S = h.shape[:2]
+    xa = rms_norm(h, lp["norm1"], cfg.norm_eps)
+    q, k, v = project_qkv(xa, lp["attn"], cfg, positions)
+    a = write_attend(q, k, v)
+    h = h + (a.reshape(B, S, -1) @ lp["attn"]["wo"])
+    g = rms_norm(h, lp["norm2"], cfg.norm_eps)
+    return h + mlp_layer(g, lp["mlp"])
+
+
+@dataclass
+class PrefillTask:
+    """In-flight prompt ingestion state (one per admitted sequence)."""
+    seq_id: str
+    prompt: list
+    pos: int = 0                    # next prompt position to compute
+    cached_tokens: int = 0          # prefix tokens served from the page cache
+    chunks: int = 0                 # chunks computed so far
+
+    @property
+    def remaining(self) -> int:
+        return len(self.prompt) - self.pos
+
+    @property
+    def done(self) -> bool:
+        return self.pos >= len(self.prompt)
+
+
+class PagedBackend:
+    """Paged KV cache backend for the dense attention family."""
+
+    def __init__(self, model: LM, params, *, max_slots: int, max_len: int,
+                 page_size: int = 128, num_pages: int | None = None,
+                 use_kernel: bool = False, enable_prefix_cache: bool = False,
+                 mesh=None, device=None):
+        cfg = model.cfg
+        if cfg.family not in ATTENTION_FAMILIES:
+            raise NotImplementedError(
+                f"paged backend: family {cfg.family!r} is not ported")
+        if mesh is not None:
+            raise NotImplementedError(
+                "tensor-parallel meshes are not ported yet (ROADMAP Queue 1 "
+                "item 11)")
+        self.device = resolve_device(device)
+        if params["embed"].device != self.device:
+            raise ValueError(f"params live on {params['embed'].device}, the "
+                             f"backend on {self.device}")
+        self.model = model
+        self.params = params
+        self.cfg = cfg
+        self.max_slots = max_slots
+        self.max_len = max_len
+        self.page_size = page_size
+        self.pages_per_seq = -(-max_len // page_size)
+        if num_pages is None:
+            num_pages = max_slots * self.pages_per_seq + 1  # +1: trash page 0
+        self.kv = PagedKVCache(num_pages, page_size,
+                               enable_prefix_cache=enable_prefix_cache)
+        L, KH, hd = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim
+        self.dtype = getattr(torch, cfg.param_dtype)
+        shape = (L, num_pages, page_size, KH, hd)
+        self.pools = {
+            "k": torch.zeros(shape, dtype=self.dtype, device=self.device),
+            "v": torch.zeros(shape, dtype=self.dtype, device=self.device),
+        }
+        self.use_kernel = use_kernel
+        self._layers = [layer_params(params, i) for i in range(L)]
+        self.free_slots = list(range(max_slots - 1, -1, -1))
+        self.slot_of: dict[str, int] = {}
+        self.seq_of: dict[int, str] = {}
+        self.decoding: set[str] = set()
+        self._dec_st = None         # device-resident per-slot decode state
+        self._dev_tables = None     # device-resident (tables, lens) pair
+        self._dev_tables_key = None  # kv.table_version the pair was built at
+
+    # -- capacity -------------------------------------------------------------
+    def can_admit(self, n_prompt: int) -> bool:
+        return (bool(self.free_slots)
+                and self.kv.can_allocate(n_prompt + 1)
+                and n_prompt < self.max_len)
+
+    def _put(self, x, dtype=None):
+        """Host array -> tensor on the backend's device."""
+        return torch.as_tensor(np.asarray(x), dtype=dtype, device=self.device)
+
+    # -- attention dispatch ----------------------------------------------------
+    def _attend(self, q, kp, vp, tables, lens):
+        if self.use_kernel:
+            return paged_attention(q, kp, vp, tables, lens)
+        return paged_attention_ref(q, kp, vp, tables, lens)
+
+    def _prefill_attend(self, q, kp, vp, tables, start, kv_len):
+        if self.use_kernel:
+            return paged_flash_prefill(q, kp, vp, tables, start, kv_len)
+        return paged_prefill_attention_ref(q, kp, vp, tables, start, kv_len)
+
+    def _tail_attend(self, q, kp, vp, tables, lens, kt, vt, tail_lens):
+        if self.use_kernel:
+            return fused_decode_attention(q, kp, vp, tables, lens, kt, vt,
+                                          tail_lens)
+        return fused_decode_attention_ref(q, kp, vp, tables, lens, kt, vt,
+                                          tail_lens)
+
+    def _cow(self, src: int, dst: int) -> None:
+        """Copy-on-write, in place: duplicate page ``src`` into ``dst``
+        across every layer before a write diverges a shared page."""
+        for pool in self.pools.values():
+            pool[:, dst] = pool[:, src]
+
+    # -- prefill protocol --------------------------------------------------------
+    def start_prefill(self, seq_id: str, prompt: list) -> PrefillTask:
+        slot = self.free_slots.pop()
+        self.slot_of[seq_id] = slot
+        self.seq_of[slot] = seq_id
+        prompt = list(prompt)
+        _, n_cached = self.kv.allocate_with_prefix(seq_id, prompt)
+        return PrefillTask(seq_id=seq_id, prompt=prompt, pos=n_cached,
+                           cached_tokens=n_cached)
+
+    def prefill_chunk(self, task: PrefillTask, budget: int | None = None):
+        """Compute up to ``budget`` prompt tokens (all remaining if None).
+        Returns (last_token_logits (V,) on the device | None,
+        tokens_computed)."""
+        S = len(task.prompt)
+        chunk = task.remaining if budget is None \
+            else min(max(budget, 1), task.remaining)
+        if (task.pos == 0 and chunk == S
+                and not self.kv.enable_prefix_cache):
+            # whole-prompt self-attention, whole-page KV writes
+            logits = self._one_shot(task.seq_id, task.prompt)
+        else:
+            logits = self._compute_chunk(task, chunk)
+        task.pos += chunk
+        task.chunks += 1
+        if task.done:
+            self.kv.commit_prefix(task.seq_id, task.prompt)
+            self.decoding.add(task.seq_id)
+            return logits, chunk
+        return None, chunk
+
+    def _one_shot(self, seq_id: str, prompt: list):
+        """Whole prompt in one forward; K/V land in the sequence's pages a
+        page at a time (the padded rows of the last page are garbage past
+        the sequence length, overwritten before they are ever read)."""
+        cfg, ps = self.cfg, self.page_size
+        S = len(prompt)
+        n_pages = self.kv.pages_needed(S)
+        table = self._put(self.kv._tables[seq_id][:n_pages], torch.long)
+        toks = torch.zeros((1, n_pages * ps), dtype=torch.long,
+                           device=self.device)
+        toks[0, :S] = self._put(prompt, torch.long)
+        h = self.model.embed_inputs(self.params, {"tokens": toks})
+        positions = torch.arange(n_pages * ps, device=self.device)[None, :]
+        for i, lp in enumerate(self._layers):
+            h, (k, v) = _block(h, lp, cfg, positions, return_kv=True)
+            self.pools["k"][i][table] = \
+                k[0].reshape(n_pages, ps, *k.shape[2:]).to(self.dtype)
+            self.pools["v"][i][table] = \
+                v[0].reshape(n_pages, ps, *v.shape[2:]).to(self.dtype)
+        h = rms_norm(h, self.params["final_norm"], cfg.norm_eps)
+        return self.model.logits(self.params, h[:, S - 1])[0]
+
+    def _compute_chunk(self, task: PrefillTask, chunk: int):
+        """One prefill chunk against the page pool: the chunk's KV is
+        written first, then its queries attend over [0, pos + chunk) of the
+        sequence's pages -- cached prefix pages are read, never
+        recomputed."""
+        cfg, ps = self.cfg, self.page_size
+        pos = task.pos
+        # COW any shared page this chunk writes into (only possible for the
+        # recomputed final token of a page-aligned full prefix hit)
+        for pi in range(pos // ps, (pos + chunk - 1) // ps + 1):
+            cow = self.kv.writable_page(task.seq_id, pi * ps)
+            if cow is not None:
+                self._cow(*cow)
+        table = self.kv._tables[task.seq_id]
+        p = np.arange(pos, pos + chunk)
+        write_pages = self._put(np.asarray(table)[p // ps], torch.long)
+        write_offs = self._put(p % ps, torch.long)
+        n_ctx = self.kv.pages_needed(pos + chunk)
+        ctx_table = self._put(np.asarray(table[:n_ctx], np.int32)[None])
+        toks = self._put(task.prompt[pos:pos + chunk], torch.long)[None]
+        h = self.model.embed_inputs(self.params, {"tokens": toks})
+        positions = pos + torch.arange(chunk, device=self.device)[None, :]
+        for i, lp in enumerate(self._layers):
+            kp, vp = self.pools["k"][i], self.pools["v"][i]
+
+            def write_attend(q, k, v, kp=kp, vp=vp):
+                kp[write_pages, write_offs] = k[0].to(self.dtype)
+                vp[write_pages, write_offs] = v[0].to(self.dtype)
+                return self._prefill_attend(q, kp, vp, ctx_table, pos,
+                                            pos + chunk)
+
+            h = _chunk_layer(h, lp, cfg, positions, write_attend)
+        h = rms_norm(h, self.params["final_norm"], cfg.norm_eps)
+        return self.model.logits(self.params, h[:, chunk - 1])[0]
+
+    # -- decode -----------------------------------------------------------------
+    def _decode_forward(self, tokens, tables, lens, page_idx, off):
+        """One decode-step forward against the page pool: write each slot's
+        new KV at (page_idx, off) in place, attend over [0, lens + 1).
+        Returns logits (B, V) on the device."""
+        cfg = self.cfg
+        B = tokens.shape[0]
+        h = self.params["embed"][tokens.long()][:, None]
+        positions = lens[:, None]
+        ctx = lens + 1
+        for i, lp in enumerate(self._layers):
+            kp, vp = self.pools["k"][i], self.pools["v"][i]
+            xa = rms_norm(h, lp["norm1"], cfg.norm_eps)
+            q, k, v = project_qkv(xa, lp["attn"], cfg, positions)
+            kp[page_idx, off] = k[:, 0].to(self.dtype)
+            vp[page_idx, off] = v[:, 0].to(self.dtype)
+            a = self._attend(q[:, 0], kp, vp, tables, ctx)
+            h = h + (a.reshape(B, 1, -1) @ lp["attn"]["wo"])
+            g = rms_norm(h, lp["norm2"], cfg.norm_eps)
+            h = h + mlp_layer(g, lp["mlp"])
+        h = rms_norm(h, self.params["final_norm"], cfg.norm_eps)
+        return self.model.logits(self.params, h[:, 0])
+
+    def _host_tables(self) -> tuple[np.ndarray, np.ndarray]:
+        """(max_slots, PPS) block tables and (max_slots,) lengths of the
+        decoding sequences; other slots hold zeros (the trash page)."""
+        tables = np.zeros((self.max_slots, self.pages_per_seq), np.int32)
+        lens = np.zeros((self.max_slots,), np.int32)
+        for slot, sid in self.seq_of.items():
+            if sid in self.decoding:
+                tables[slot] = self.kv.table_array([sid],
+                                                   self.pages_per_seq)[0]
+                lens[slot] = self.kv.length(sid)
+        return tables, lens
+
+    def decode_batch(self, tokens_by_slot: np.ndarray):
+        """tokens_by_slot: (max_slots,). Inactive / mid-prefill slots write
+        to trash page 0. Returns the (max_slots, V) logits on the host."""
+        for sid in self.decoding:
+            self.kv.ensure_slot(sid)
+            # a decode write into a still-shared page must diverge first
+            cow = self.kv.writable_page(sid, self.kv.length(sid))
+            if cow is not None:
+                self._cow(*cow)
+        tables, lens = self._host_tables()
+        page_idx = tables[np.arange(self.max_slots), lens // self.page_size]
+        logits = self._decode_forward(
+            self._put(tokens_by_slot, torch.long), self._put(tables),
+            self._put(lens), self._put(page_idx, torch.long),
+            self._put(lens % self.page_size, torch.long))
+        for sid in self.decoding:
+            self.kv.advance(sid)
+        return _logits_to_host(logits)
+
+    # -- fused decode fast path --------------------------------------------------
+    def _fused_impl(self, st, tables, lens, K):
+        """Reference tier: K fused decode+sample+stop-check steps, each
+        writing the fed token's KV into the pool at position ``lens`` (dead
+        slots route to trash page 0). Returns (tokens (K, B), produced (B,),
+        done (B,), st, lens)."""
+        ps = self.page_size
+        B = st["tokens"].shape[0]
+        tokens, n_gen = st["tokens"], st["n_gen"]
+        done = torch.zeros((B,), dtype=torch.bool, device=self.device)
+        produced = torch.zeros((B,), dtype=torch.int32, device=self.device)
+        out = torch.zeros((K, B), dtype=torch.int32, device=self.device)
+        last = tables.shape[1] - 1
+        for i in range(K):
+            live = st["active"] & ~done
+            page_slot = torch.clamp(lens // ps, max=last).long()
+            page_idx = tables.gather(1, page_slot[:, None])[:, 0]
+            page_idx = torch.where(live, page_idx, 0).long()
+            off = torch.where(live, lens % ps, 0).long()
+            logits = self._decode_forward(tokens, tables, lens, page_idx, off)
+            lens = lens + live.to(torch.int32)
+            tokens, n_gen, done, produced = _sample_and_latch(
+                st, logits, tokens, n_gen, done, produced, live)
+            out[i] = tokens
+        return out, produced, done, dict(st, tokens=tokens, n_gen=n_gen), lens
+
+    def _fused_kernel_impl(self, st, tables, lens0, K):
+        """Kernel tier: K fused decode steps with no per-step pool write.
+
+        Each step appends its new KV to (L, B, K, KH, hd) tail buffers and
+        attends committed pages + tail under one softmax through
+        ``fused_decode_attention``. After the loop one scatter per pool
+        commits every valid tail row; rows past ``produced`` are routed to
+        trash page 0 (the explicit mask that stands in for the reference's
+        out-of-bounds ``mode="drop"``). Emits the same token stream as
+        :meth:`_fused_impl`. Returns (tokens (K, B), produced, done, st,
+        lens)."""
+        cfg, ps = self.cfg, self.page_size
+        B = st["tokens"].shape[0]
+        L, KH, hd = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim
+        dev = self.device
+        k_tails = torch.zeros((L, B, K, KH, hd), dtype=self.dtype, device=dev)
+        v_tails = torch.zeros_like(k_tails)
+        tokens, n_gen = st["tokens"], st["n_gen"]
+        done = torch.zeros((B,), dtype=torch.bool, device=dev)
+        produced = torch.zeros((B,), dtype=torch.int32, device=dev)
+        out = torch.zeros((K, B), dtype=torch.int32, device=dev)
+        bidx = torch.arange(B, device=dev)
+        for i in range(K):
+            live = st["active"] & ~done
+            # ``produced`` doubles as the tail write cursor: slot b's valid
+            # tail rows are [0, produced[b]) and this step writes row
+            # produced[b] (dead slots overwrite that row; their outputs are
+            # discarded by the live mask)
+            h = self.params["embed"][tokens.long()][:, None]
+            positions = (lens0 + produced)[:, None]
+            tail_lens = produced + 1
+            row = produced.long()
+            for l, lp in enumerate(self._layers):
+                xa = rms_norm(h, lp["norm1"], cfg.norm_eps)
+                q, k, v = project_qkv(xa, lp["attn"], cfg, positions)
+                k_tails[l][bidx, row] = k[:, 0].to(self.dtype)
+                v_tails[l][bidx, row] = v[:, 0].to(self.dtype)
+                a = self._tail_attend(q[:, 0], self.pools["k"][l],
+                                      self.pools["v"][l], tables, lens0,
+                                      k_tails[l], v_tails[l], tail_lens)
+                h = h + (a.reshape(B, 1, -1) @ lp["attn"]["wo"])
+                g = rms_norm(h, lp["norm2"], cfg.norm_eps)
+                h = h + mlp_layer(g, lp["mlp"])
+            h = rms_norm(h, self.params["final_norm"], cfg.norm_eps)
+            logits = self.model.logits(self.params, h[:, 0])
+            tokens, n_gen, done, produced = _sample_and_latch(
+                st, logits, tokens, n_gen, done, produced, live)
+            out[i] = tokens
+        # one deferred commit per pool: (L, B, K) tail rows -> their pages
+        jj = torch.arange(K, device=dev)[None, :]
+        pos = lens0[:, None] + jj                               # (B, K)
+        valid = jj < produced[:, None]
+        page_slot = torch.clamp(pos // ps, max=tables.shape[1] - 1).long()
+        page_idx = torch.where(valid, tables.gather(1, page_slot), 0).long()
+        off = torch.where(valid, pos % ps, 0).long()
+        self.pools["k"][:, page_idx, off] = k_tails
+        self.pools["v"][:, page_idx, off] = v_tails
+        st = dict(st, tokens=tokens, n_gen=n_gen)
+        return out, produced, done, st, lens0 + produced
+
+    def fused_decode(self, K: int, host_state: dict | None = None):
+        """Run up to K decode steps on the device; sync only token ids and
+        flags, in one device->host copy.
+
+        Host-side prep per call: allocate page headroom for K tokens per
+        decoding sequence (clamping K down if the pool is tight) and resolve
+        copy-on-write for every page the loop will write. Block tables and
+        lengths are uploaded only when the allocator state changed
+        (``kv.table_version``) or the engine re-seeds the slot state.
+        Returns (tokens (K_eff, max_slots), produced, done) numpy arrays.
+        """
+        K_eff = self._reserve_headroom(max(1, K))
+        self._resolve_cow(K_eff)
+        self._refresh_tables(force=host_state is not None)
+        if host_state is not None:
+            self._dec_st = _upload_state(host_state, self.device)
+        if self._dec_st is None:
+            raise RuntimeError("fused_decode needs host_state on the first "
+                               "call")
+        tables_d, lens_d = self._dev_tables
+        impl = self._fused_kernel_impl if self.use_kernel else self._fused_impl
+        out, produced, done, self._dec_st, lens_d = impl(
+            self._dec_st, tables_d, lens_d, K_eff)
+        self._dev_tables = (tables_d, lens_d)
+        host = torch.cat([out, produced[None], done[None].to(torch.int32)])
+        host = host.cpu().numpy()
+        out_np, produced_np = host[:K_eff], host[K_eff]
+        for slot, sid in self.seq_of.items():
+            if sid in self.decoding:
+                self.kv.advance_n(sid, int(produced_np[slot]))
+        return out_np, produced_np, host[K_eff + 1].astype(bool)
+
+    def _reserve_headroom(self, n: int) -> int:
+        """Reserve page headroom for up to ``n`` token writes per decoding
+        sequence. Every live sequence first gets ONE token of headroom
+        (raise rather than route a live KV write to the trash page), then
+        best-effort up to ``n``. Returns the write count the pool (and
+        ``max_len``) can take."""
+        for sid in self.decoding:
+            if self.kv.ensure_capacity(sid, 1) <= 0:
+                raise OutOfPages(f"{sid}: pool exhausted on decode append")
+        for sid in self.decoding:
+            ahead = max(1, min(n, self.max_len - self.kv.length(sid)))
+            n = min(n, max(1, self.kv.ensure_capacity(sid, ahead)))
+        return n
+
+    def _resolve_cow(self, n_writes: int) -> None:
+        """COW every still-shared page the next ``n_writes`` decode token
+        writes of each decoding sequence would land in."""
+        ps = self.page_size
+        for sid in self.decoding:
+            pos0 = self.kv.length(sid)
+            for pi in range(pos0 // ps, (pos0 + n_writes - 1) // ps + 1):
+                cow = self.kv.writable_page(sid, pi * ps)
+                if cow is not None:
+                    self._cow(*cow)
+
+    def _refresh_tables(self, force: bool) -> None:
+        """(Re)upload the device-resident (block tables, lengths) pair when
+        the allocator state moved from under the cached copy."""
+        if (force or self._dev_tables is None
+                or self._dev_tables_key != self.kv.table_version):
+            tables, lens = self._host_tables()
+            self._dev_tables = (self._put(tables), self._put(lens))
+            self._dev_tables_key = self.kv.table_version
+
+    # -- not ported in this slice ------------------------------------------------
+    def spec_verify(self, draft_tokens, host_state=None):
+        raise NotImplementedError("speculative decoding is not ported yet "
+                                  "(ROADMAP Queue 1 item 7)")
+
+    def swap_out(self, seq_id: str) -> dict:
+        raise NotImplementedError("swap preemption is not ported yet "
+                                  "(ROADMAP Queue 1 item 7)")
+
+    def swap_in(self, seq_id: str, n_tokens: int, blob: dict) -> None:
+        raise NotImplementedError("swap preemption is not ported yet "
+                                  "(ROADMAP Queue 1 item 7)")
+
+    # -- lifecycle -----------------------------------------------------------------
+    def free(self, seq_id: str):
+        slot = self.slot_of.pop(seq_id)
+        self.seq_of.pop(slot, None)
+        self.decoding.discard(seq_id)
+        self.free_slots.append(slot)
+        self.kv.free(seq_id)
+
+    def publish(self, seq_id: str, tokens: list) -> None:
+        """Preemption hook: register a preempted sequence's full pages
+        (prompt AND decoded tokens) in the content index before they are
+        freed, so the restore prefill content-matches them back. No-op
+        when the prefix cache is disabled."""
+        self.kv.commit_prefix(seq_id, tokens)
+
+    def slot(self, seq_id: str) -> int:
+        return self.slot_of[seq_id]
+
+    def cache_stats(self) -> dict:
+        s = dict(self.kv.stats)
+        s["hit_rate"] = self.kv.hit_rate()
+        s["cached_free_pages"] = self.kv.cached_free_pages
+        return s
