@@ -10,13 +10,15 @@ package. Phases, each of which raises on a failed check (exit code 1):
 1. Header: the card's name and power limit (nvidia-smi), torch and CUDA
    versions, and the time to build every CUDA kernel of the port (one
    ``nvcc`` per source, all started together).
-2. Kernel checks: every kernel on the engine's path against its plain
+2. Kernel checks: every kernel on the engines' paths against its plain
    PyTorch version on the card, at the main-path shapes of full-width
-   llama3.2-3b and at the edge geometries of the kernel tests; then its
+   llama3.2-3b (paged attention kernels) and zamba2-2.7b / mamba2-130m
+   (the SSD scan, dense flash attention) and at edge geometries; then its
    time (median of CUDA-event timed runs, L2 flushed before each) beside
-   the plain version's, a library yardstick's
-   (``scaled_dot_product_attention`` on pre-gathered K/V, which the port
-   never calls) and the least time the card could take.
+   the plain version's, a library yardstick's where one PyTorch call
+   computes the same function (``scaled_dot_product_attention``, which the
+   port never calls; the SSD scan has none) and the least time the card
+   could take.
 3. Engine run at full width (llama3.2-3b, random bf16 weights from a
    seeded generator): after a short warm-up run, 8 requests sharing a
    1024-token prefix through the fused K=8 path with chunked prefill and
@@ -26,11 +28,20 @@ package. Phases, each of which raises on a failed check (exit code 1):
    of the kernel tier against the plain tier (prefill chunks + decode
    steps). The launch counters are set to 0 just before each path and
    read just after it.
-4. A ``{"kernels": [...]}`` line, the nvidia-smi line, and last
+4. Slot engine at full width (zamba2-2.7b, random bf16 weights): after a
+   warm-up, 8 prompts of 200..2048 tokens prefilled one-shot at their
+   exact length through the kernel tier (54 ``ssd`` and 9
+   ``flash_attention`` launches a prompt, checked) and 64 tokens each
+   through the fused K=8 path; 2 requests through the per-step path; then
+   a teacher-forced comparison of the kernel tier against the plain tier,
+   beside the plain tier's own spread when only the order of its sums
+   changes.
+5. A ``{"kernels": [...]}`` line, the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -52,6 +63,15 @@ TOL = {"bfloat16": 2e-2, "float32": 1e-4}
 # bf16 ulp-level differences in every attention output, carried through
 # 28 residual layers and the 128256-wide head
 LOGITS_TOL = 5e-2
+# zamba2-2.7b's 63 blocks with random weights amplify ulp-level rounding
+# differences to about 5e-2 of the logits' scale: the slot phase holds the
+# kernel tier to LOGITS_TOL or to this many times the plain tier's own
+# spread under a reordering of its sums, measured in the same run
+SPREAD_FACTOR = 2.0
+# the SSD kernel's float32 final state against the plain scan's, relative
+# to its scale: the same float32 products summed in another order (the
+# plain scan combines chunk states through exp(segsum) products)
+SSD_STATE_TOL = 1e-4
 
 
 def rel_err(out, ref):
@@ -298,10 +318,171 @@ def run_kernel_checks(torch, dev):
 
 
 # ---------------------------------------------------------------------------
+# phase 2 (hybrid path): the SSD scan and dense flash attention
+# ---------------------------------------------------------------------------
+
+def ssd_bound(b, s, h, p, n, Q, elem):
+    """(least ms, 'bytes' | 'operations') of one SSD scan: each input and
+    output once at the HBM rate, or the products these inputs need at the
+    bf16 tensor-core rate -- C B^T once per chunk (it is shared by the
+    heads), and per head the weighted product with x, the state term of
+    every chunk after the first (the first enters with a zero state) and
+    the state update."""
+    nbytes = b * s * h * p * elem * 2 + b * s * h * 4 + 2 * b * s * n * elem \
+        + b * h * p * n * 4
+    flops = 0
+    for c0 in range(0, s, Q):
+        q = min(Q, s - c0)
+        tri = q * (q + 1) // 2
+        flops += b * tri * n * 2
+        flops += b * h * (tri * p * 2 + q * p * n * 2
+                          + (q * n * p * 2 if c0 else 0))
+    t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
+    return max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations"
+
+
+def flash_bound(B, S, H, KH, D, window, seq_k, elem):
+    """(least ms, by what) of causal dense attention: q, k, v and the output
+    once, or 4 * D flops for every visible (query, key) pair."""
+    pairs = 0
+    for i in range(S):
+        lo = max(0, i - window + 1) if window else 0
+        pairs += max(0, min(i + 1, seq_k) - lo)
+    flops = pairs * B * H * 4 * D
+    nbytes = 2 * B * S * H * D * elem + 2 * B * S * KH * D * elem
+    t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
+    return max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations"
+
+
+def run_hybrid_kernel_checks(torch, dev):
+    """The two kernels of the slot engine's prefill against their plain
+    versions at zamba2-2.7b's and mamba2-130m's shapes and the edge cases,
+    then their times at zamba2-2.7b's prefill of a 2048-token prompt."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.kernels.ssd.ops import ssd
+    from repro_torch.kernels.ssd.ref import ssd_chunked
+    from repro_torch.models.layers import chunked_attention
+    F = torch.nn.functional
+    K = Kernels(torch, dev)
+    bf16, f32 = torch.bfloat16, torch.float32
+    results = {}
+
+    def compare(name, out, ref, dtype, label, tol=None):
+        rel, absd = rel_err(out, ref)
+        tol = tol or TOL[str(dtype).split(".")[-1]]
+        print(f"  {name:24s} {label:48s} rel_err={rel:.3e} abs={absd:.3e}"
+              f" {'ok' if rel <= tol else 'FAIL'}")
+        check(bool(torch.isfinite(out.float()).all()), f"{name} {label}: "
+              "non-finite output")
+        check(rel <= tol, f"{name} {label}: kernel disagrees with its plain "
+              "version")
+        return absd
+
+    # -- SSD: B and C are column views of the conv output, as on the path --
+    def ssd_case(b, s, h, p, n, dtype):
+        x = K.randn(b, s, h, p, dtype=dtype)
+        a = -torch.rand(b, s, h, generator=K.gen, device=dev) * 0.5
+        xbc = K.randn(b, s, h * p + 2 * n, dtype=dtype)
+        return x, a, xbc[..., h * p:h * p + n], xbc[..., h * p + n:]
+
+    scases = [
+        (dict(b=1, s=2048, h=80, p=64, n=64, dtype=f32),
+         "zamba2 s=2048, f32"),
+        (dict(b=1, s=1536, h=24, p=64, n=128, dtype=bf16),
+         "mamba2-130m n=128 s=1536, bf16"),
+        (dict(b=1, s=1536, h=24, p=64, n=128, dtype=f32),
+         "mamba2-130m n=128 s=1536, f32"),
+        (dict(b=1, s=200, h=80, p=64, n=64, dtype=bf16),
+         "s=200 < chunk (Q=200), bf16"),
+        (dict(b=1, s=777, h=80, p=64, n=64, dtype=bf16),
+         "s=777 ragged last chunk, bf16"),
+        (dict(b=1, s=1, h=80, p=64, n=64, dtype=f32), "s=1, f32"),
+        (dict(b=2, s=300, h=24, p=64, n=128, dtype=bf16),
+         "b=2 s=300 n=128, bf16"),
+    ]
+    print("  (SSD: y against ssd_chunked by dtype; final state within "
+          f"{SSD_STATE_TOL} of its scale)")
+    for kw, label in scases:
+        a = ssd_case(**kw)
+        y, st = ssd(*a, 256)
+        yr, str_ = ssd_chunked(*a, 256)
+        compare("ssd", y, yr, kw["dtype"], label)
+        compare("ssd (final state)", st, str_, f32, label, SSD_STATE_TOL)
+    sm = ssd_case(1, 2048, 80, 64, 64, bf16)
+    y, st = ssd(*sm, 256)
+    yr, str_ = ssd_chunked(*sm, 256)
+    err_ssd = compare("ssd", y, yr, bf16, "main: zamba2 s=2048, bf16")
+    compare("ssd (final state)", st, str_, f32, "main: zamba2 s=2048, bf16",
+            SSD_STATE_TOL)
+    b_ssd, by_ssd = ssd_bound(1, 2048, 80, 64, 64, 256, 2)
+    results["ssd"] = dict(
+        max_abs_err=err_ssd, ms=K.time_ms(lambda: ssd(*sm, 256)),
+        plain_ms=K.time_ms(lambda: ssd_chunked(*sm, 256)),
+        bound_ms=b_ssd, bound_by=by_ssd, library_ms=None)
+    del sm, y, yr
+    torch.cuda.synchronize()
+
+    # -- dense flash attention, Sq == Sk (start- and end-aligned agree) --
+    def flash_case(B, S, H, KH, D, dtype):
+        return (K.randn(B, S, H, D, dtype=dtype),
+                K.randn(B, S, KH, D, dtype=dtype),
+                K.randn(B, S, KH, D, dtype=dtype))
+
+    fcases = [
+        (dict(B=1, S=2048, H=32, KH=32, D=80, dtype=f32), 0, None,
+         "zamba2 D=80 G=1 S=2048, f32"),
+        (dict(B=1, S=4608, H=32, KH=32, D=80, dtype=bf16), 4096, None,
+         "zamba2 D=80 S=4608 window 4096, bf16"),
+        (dict(B=1, S=1024, H=32, KH=32, D=80, dtype=bf16), 300, None,
+         "D=80 S=1024 window 300, bf16"),
+        (dict(B=1, S=2048, H=32, KH=32, D=80, dtype=bf16), 0, 1900,
+         "D=80 S=2048 padded seq_k=1900, bf16"),
+        (dict(B=2, S=1536, H=24, KH=8, D=128, dtype=bf16), 0, None,
+         "D=128 G=3 B=2 S=1536, bf16"),
+        (dict(B=1, S=4608, H=24, KH=8, D=128, dtype=bf16), 4096, None,
+         "D=128 G=3 S=4608 window 4096, bf16"),
+        (dict(B=1, S=333, H=24, KH=8, D=128, dtype=f32), 0, 300,
+         "D=128 G=3 S=333 seq_k=300, f32"),
+        (dict(B=1, S=256, H=8, KH=8, D=64, dtype=bf16), 0, None,
+         "D=64 G=1 S=256, bf16"),
+    ]
+    for kw, window, seq_k, label in fcases:
+        q, k, v = flash_case(**kw)
+        out = flash_attention(q, k, v, window=window, seq_k=seq_k)
+        compare("flash_attention", out,
+                attention_ref(q, k, v, window=window, kv_len=seq_k),
+                kw["dtype"], label)
+        del q, k, v, out
+    fm = flash_case(1, 2048, 32, 32, 80, bf16)
+    out = flash_attention(*fm)
+    err_fa = compare("flash_attention", out, attention_ref(*fm), bf16,
+                     "main: zamba2 S=2048 vs attention_ref, bf16")
+    compare("flash_attention", out, chunked_attention(*fm), bf16,
+            "main: zamba2 S=2048 vs chunked_attention, bf16")
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in fm)
+    b_fa, by_fa = flash_bound(1, 2048, 32, 32, 80, 0, 2048, 2)
+    results["flash_attention"] = dict(
+        max_abs_err=err_fa, ms=K.time_ms(lambda: flash_attention(*fm)),
+        plain_ms=K.time_ms(lambda: chunked_attention(*fm)),
+        bound_ms=b_fa, bound_by=by_fa,
+        library_ms=K.time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True)))
+    torch.cuda.synchronize()
+    for name, r in results.items():
+        lib = "--" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
+        print(f"  time {name:24s} kernel {r['ms']:.4f} ms  plain "
+              f"{r['plain_ms']:.4f} ms  library {lib}  "
+              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+    return results
+
+
+# ---------------------------------------------------------------------------
 # phase 3: the engine at full width
 # ---------------------------------------------------------------------------
 
-def make_requests(n, prefix_len, tail_lens, max_tokens, vocab, seed):
+def make_requests(n, prefix_len, tail_lens, max_tokens, vocab, seed,
+                  model="llama3.2-3b"):
     import numpy as np
     from repro_torch.serving.request import InferenceRequest, SamplingParams
     rng = np.random.default_rng(seed)
@@ -311,7 +492,7 @@ def make_requests(n, prefix_len, tail_lens, max_tokens, vocab, seed):
         samp = dict(temperature=0.0) if i % 2 == 0 \
             else dict(temperature=0.8, top_p=0.9)
         out.append(InferenceRequest(
-            model="llama3.2-3b", request_id=f"r{i}",
+            model=model, request_id=f"r{i}",
             prompt_tokens=prefix + rng.integers(
                 2, vocab, size=int(tail_lens[i])).tolist(),
             sampling=SamplingParams(max_tokens=max_tokens, seed=100 + i,
@@ -344,8 +525,9 @@ def drive(torch, engine, reqs):
 def kernel_group(name: str) -> str:
     """Coarse class of a device activity, by its name."""
     n = name.lower()
-    if "paged_decode_kernel" in n or "paged_prefill_kernel" in n:
-        return "port attention kernels"
+    if any(k in n for k in ("paged_decode_kernel", "paged_prefill_kernel",
+                            "flash_kernel", "ssd_kernel")):
+        return "port kernels"
     if "memcpy" in n or "memset" in n:
         return "copies"
     if any(s in n for s in ("gemm", "nvjet", "cutlass", "xmma", "cublas")):
@@ -562,6 +744,170 @@ def run_engine(torch, dev):
     return launches, metrics
 
 
+# ---------------------------------------------------------------------------
+# phase 4: the slot engine at full width (zamba2-2.7b)
+# ---------------------------------------------------------------------------
+
+def run_hybrid_engine(torch, dev):
+    """zamba2-2.7b on the slot backend with the kernel tier: 8 prompts of
+    200..2048 tokens through exact-length one-shot prefill and the fused
+    K=8 decode, then 2 on the per-step path, then a teacher-forced
+    comparison of the kernel tier against the plain tier."""
+    import numpy as np
+    from repro_torch.configs import REGISTRY
+    from repro_torch.kernels import _build
+    from repro_torch.models import make_model
+    from repro_torch.serving import backends
+    from repro_torch.serving.backends import SlotBackend
+    from repro_torch.serving.engine import (ContinuousBatchingEngine,
+                                            EngineConfig)
+
+    cfg = REGISTRY["zamba2-2.7b"]
+    n_shared = cfg.num_layers // cfg.attn_every
+    print(f"phase 4: slot engine at full width: {cfg.name} L={cfg.num_layers}"
+          f" d={cfg.d_model} ssm heads={cfg.ssm_heads}x{cfg.ssm.head_dim} "
+          f"n={cfg.ssm.d_state} shared attention x{n_shared} "
+          f"H={cfg.num_heads} hd={cfg.head_dim} ff={cfg.d_ff} "
+          f"V={cfg.vocab_size} {cfg.param_dtype}")
+    model = make_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init_params(torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    print(f"  random weights in {time.perf_counter() - t0:.1f} s")
+    ecfg = dict(backend="slots", use_kernel=True, max_slots=8,
+                max_seq_len=4096, decode_steps_per_sync=8)
+    V = cfg.vocab_size
+
+    def requests(lens, max_tokens, seed):
+        return make_requests(len(lens), 0, lens, max_tokens, V, seed,
+                             model=cfg.name)
+
+    warm = ContinuousBatchingEngine(model, params, EngineConfig(**ecfg),
+                                    device=dev)
+    drive(torch, warm, requests([200, 300], 9, 9))
+    del warm
+    torch.cuda.empty_cache()
+
+    # -- main path: exact-length one-shot prefill, fused K=8 decode --
+    lens = [200, 300, 512, 777, 1024, 1300, 1800, 2048]
+    eng = ContinuousBatchingEngine(model, params, EngineConfig(**ecfg),
+                                   device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    backends.reset_transfer_stats()
+    _build.reset_launches()
+    outs, t_pf, t_dec, n_dec = drive(torch, eng, requests(lens, 64, 4))
+    fused_launches = dict(_build.LAUNCHES)
+    transfers = dict(backends.TRANSFER_STATS)
+    print(f"  fused path launches {fused_launches} transfers {transfers}")
+    check(len(outs) == 8, f"{len(outs)} of 8 requests finished")
+    for o in outs:
+        check(o.finish_reason == "length" and len(o.output_tokens) == 64,
+              f"{o.request_id}: {o.finish_reason} after "
+              f"{len(o.output_tokens)} tokens, expected length after 64")
+        check(all(0 <= t < V for t in o.output_tokens),
+              f"{o.request_id}: token id out of range")
+    check(transfers["decode_logits_transfers"] == 0,
+          "the fused path moved logits to the host")
+    check(fused_launches["ssd"] == cfg.num_layers * len(lens),
+          f"ssd launched {fused_launches['ssd']} times, expected "
+          f"{cfg.num_layers} for each of {len(lens)} prompts")
+    check(fused_launches["flash_attention"] == n_shared * len(lens),
+          f"flash_attention launched {fused_launches['flash_attention']} "
+          f"times, expected {n_shared} for each of {len(lens)} prompts")
+    ttft = sorted(o.metrics.ttft for o in outs)
+    metrics = {
+        "prefill_tokens": eng.stats["prefill_tokens"],
+        "prefill_tok_s": eng.stats["prefill_tokens"] / t_pf,
+        "decode_tok_s": n_dec / t_dec if t_dec else float("nan"),
+        "ttft_p50_s": statistics.median(ttft),
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+        "decode_syncs": eng.stats["decode_syncs"],
+    }
+    print(f"  prefill {metrics['prefill_tokens']} tokens in steps taking "
+          f"{t_pf:.3f} s: {metrics['prefill_tok_s']:.1f} tokens/s")
+    print(f"  decode-only steps: {n_dec} tokens in {t_dec:.3f} s: "
+          f"{metrics['decode_tok_s']:.1f} tokens/s; TTFT p50 "
+          f"{metrics['ttft_p50_s']:.3f} s; peak memory "
+          f"{metrics['peak_mem_gib']:.2f} GiB")
+    del eng
+    torch.cuda.empty_cache()
+    metrics.update(profile_decode(
+        torch, ContinuousBatchingEngine(model, params, EngineConfig(**ecfg),
+                                        device=dev),
+        requests(lens, 64, 3)))
+    torch.cuda.empty_cache()
+
+    # -- per-step path: fused_decode=False --
+    eng2 = ContinuousBatchingEngine(
+        model, params, EngineConfig(**dict(ecfg, fused_decode=False)),
+        device=dev)
+    _build.reset_launches()
+    outs2, _, _, _ = drive(torch, eng2, requests([300, 700], 16, 1))
+    step_launches = dict(_build.LAUNCHES)
+    print(f"  per-step path launches {step_launches}")
+    check(len(outs2) == 2 and all(len(o.output_tokens) == 16 for o in outs2),
+          "per-step path: requests did not finish with 16 tokens")
+    check(step_launches["ssd"] == 2 * cfg.num_layers
+          and step_launches["flash_attention"] == 2 * n_shared,
+          "per-step path: the prefill kernels did not launch once a layer")
+    del eng2
+    torch.cuda.empty_cache()
+
+    # -- teacher-forced: kernel tier vs plain tier on the same tokens, and
+    # the plain tier's own spread: the same model with SSD chunks of 128
+    # instead of 256 computes the same function with its sums in another
+    # order (random weights at this depth amplify ulp-level differences) --
+    floor_model = make_model(dataclasses.replace(
+        cfg, ssm=dataclasses.replace(cfg.ssm, chunk=128)))
+    bk = [SlotBackend(m, params, max_slots=2, max_len=4096, use_kernel=uk,
+                      device=dev)
+          for m, uk in ((model, True), (model, False), (floor_model, False))]
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(2, V, size=n).tolist() for n in (512, 2048)]
+    worst, spread = 0.0, 0.0
+    tok = np.zeros((2,), np.int64)
+    for sid, pr in enumerate(prompts):
+        lk, lp, lf = (b.prefill(f"s{sid}", pr) for b in bk)
+        rel, _ = rel_err(lk, lp)
+        rel_f, _ = rel_err(lf, lp)
+        worst, spread = max(worst, rel), max(spread, rel_f)
+        tok[sid] = int(lk.argmax())
+        print(f"  teacher-forced prefill s{sid} ({len(pr)} tokens): logits "
+              f"rel_err {rel:.3e}; plain tier's own spread {rel_f:.3e}")
+    agree, ties = 0, 0
+    steps = 16
+    for _ in range(steps):
+        lk, lp, lf = (b.decode_batch(tok) for b in bk)
+        scale = max(float(np.abs(lp).max()), 1e-6)
+        diff = float(np.abs(lk - lp).max())
+        worst = max(worst, diff / scale)
+        spread = max(spread, float(np.abs(lf - lp).max()) / scale)
+        for s_ in range(2):
+            same = int(lk[s_].argmax()) == int(lp[s_].argmax())
+            top2 = np.sort(lp[s_])[-2:]
+            agree += same
+            # a flip between two candidates closer than the tiers differ
+            # is a tie, not a fault
+            ties += (not same) and (top2[1] - top2[0] <= 2 * diff)
+        tok = lk.argmax(-1)
+    share = agree / (2 * steps)
+    tol = max(LOGITS_TOL, SPREAD_FACTOR * spread)
+    print(f"  teacher-forced decode: {steps} steps x 2 sequences, worst "
+          f"logits rel_err {worst:.3e}; plain tier's own spread "
+          f"{spread:.3e}; tolerance max({LOGITS_TOL}, {SPREAD_FACTOR} x "
+          f"spread) = {tol:.3e}; greedy tokens that match: {share:.3f} "
+          f"({ties} ties within the error)")
+    check(worst <= tol, "kernel tier logits disagree with the plain tier")
+    check(agree + ties == 2 * steps, "a greedy token differs between the "
+          "tiers by more than their logits do")
+    metrics["teacher_forced_rel_err"] = worst
+    metrics["plain_spread_rel_err"] = spread
+    metrics["greedy_match_share"] = share
+    launches = {"ssd": fused_launches["ssd"],
+                "flash_attention": fused_launches["flash_attention"]}
+    return launches, metrics
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         fail(f"{SRC / 'repro_torch'} not found: run from a checkout")
@@ -589,7 +935,11 @@ def main() -> int:
                 print(f"    {name}: {line.strip()}")
 
     timing = run_kernel_checks(torch, dev)
+    timing.update(run_hybrid_kernel_checks(torch, dev))
     launches, metrics = run_engine(torch, dev)
+    torch.cuda.empty_cache()
+    hybrid_launches, hybrid_metrics = run_hybrid_engine(torch, dev)
+    launches.update(hybrid_launches)
 
     replaces = {
         "paged_attention": ("src/repro_torch/csrc/paged_attention.cu",
@@ -600,9 +950,14 @@ def main() -> int:
         "paged_flash_prefill": (
             "src/repro_torch/csrc/paged_prefill.cu",
             "src/repro/kernels/flash_attention/kernel.py:135"),
+        "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+                            "src/repro/kernels/flash_attention/kernel.py:186"),
+        "ssd": ("src/repro_torch/csrc/ssd.cu",
+                "src/repro/kernels/ssd/kernel.py:65"),
     }
-    # launches: paged_attention from the per-step path, the other two from
-    # the fused main path
+    # launches: paged_attention from phase 3's per-step path, the other two
+    # paged kernels from its fused main path, ssd and flash_attention from
+    # phase 4's main path
     kernels = []
     for name, (source, repl) in replaces.items():
         r = timing[name]
@@ -613,7 +968,8 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
-    print(json.dumps({"metrics": metrics, "build_s": build_s}))
+    print(json.dumps({"metrics": metrics, "hybrid_metrics": hybrid_metrics,
+                      "build_s": build_s}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

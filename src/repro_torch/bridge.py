@@ -16,7 +16,10 @@ import torch
 
 def params_from_jax_numpy(tree, cfg, device, dtype=None):
     """Nested dict of numpy arrays -> the same nested dict of tensors on
-    ``device`` in ``dtype`` (default: ``cfg.param_dtype``). bfloat16
+    ``device``. Leaves in the reference's param dtype (``cfg.param_dtype``)
+    take ``dtype`` (default: that dtype); any other leaf keeps its own, so
+    the float32 leaves the reference keeps whatever the param dtype (a
+    mamba layer's ``A_log``, ``D`` and ``dt_bias``) stay float32. bfloat16
     leaves (numpy's ml_dtypes extension type) go through float32, which
     holds them exactly."""
     dtype = dtype or getattr(torch, cfg.param_dtype)
@@ -24,8 +27,10 @@ def params_from_jax_numpy(tree, cfg, device, dtype=None):
     def conv(x):
         if isinstance(x, dict):
             return {k: conv(v) for k, v in x.items()}
+        name = str(np.asarray(x).dtype)
+        to = dtype if name == cfg.param_dtype else getattr(torch, name)
         arr = np.array(x, dtype=np.float32)       # a writable copy
-        return torch.from_numpy(arr).to(device=device, dtype=dtype)
+        return torch.from_numpy(arr).to(device=device, dtype=to)
 
     out = conv(dict(tree))
     missing = {"embed", "layers", "final_norm"} - set(out)

@@ -23,14 +23,14 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-SOURCES = ("paged_attention", "paged_prefill")
+SOURCES = ("paged_attention", "paged_prefill", "ssd", "flash_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 NVCC_TIMEOUT_S = 600
 
 # launches per kernel wrapper; incremented only where a kernel is launched
 LAUNCHES = {"paged_attention": 0, "fused_decode_attention": 0,
-            "paged_flash_prefill": 0}
+            "paged_flash_prefill": 0, "ssd": 0, "flash_attention": 0}
 # source name -> nvcc's output (register / shared-memory use from ptxas)
 BUILD_LOG: dict[str, str] = {}
 _LIBS: dict[str, ctypes.CDLL] = {}

@@ -1,12 +1,16 @@
-"""Public wrapper for the paged flash-prefill kernel (``csrc/paged_prefill.cu``).
+"""Public wrappers for the flash-attention kernels: dense prefill
+attention (``csrc/flash_attention.cu``) and paged chunked prefill
+(``csrc/paged_prefill.cu``).
 
-Same signature and layout as ``paged_flash_prefill`` in the JAX package's
+Same signatures and layouts as ``flash_attention`` and
+``paged_flash_prefill`` in the JAX package's
 ``repro/kernels/flash_attention/ops.py``. CPU tensors run the plain
-PyTorch version (``ref.py``); CUDA tensors launch the kernel or raise.
-The kernel reads q and writes the output in their (B, C, H, D) layout and
-folds (token, head of the group) into query rows itself, so the wrapper
-makes no fold copies; it allocates the output and the (B,) int32 start and
-length vectors, and launches on the current stream without synchronising.
+PyTorch versions; CUDA tensors launch the kernel or raise. The kernels
+read q and write the output in their (B, S, H, D) layout and fold
+(token, head of the group) into query rows themselves, so the wrappers
+make no fold copies; they allocate the output (and, for the paged kernel,
+the (B,) int32 start and length vectors), and launch on the current stream
+without synchronising.
 """
 from __future__ import annotations
 
@@ -16,6 +20,54 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention.ref import paged_prefill_attention_ref
 from repro_torch.kernels.paged_attention.ops import (_DTYPE_CODE, HEAD_DIMS,
                                                      _group)
+from repro_torch.models.layers import chunked_attention
+
+FLASH_HEAD_DIMS = (64, 80, 128)
+
+
+def flash_attention(q, k, v, *, causal=True, window=0, seq_k=None):
+    """Dense flash attention. q: (B, Sq, H, D); k, v: (B, Sk, KH, D) with
+    H % KH == 0. Positions are start-aligned, as in the JAX kernel: query
+    i and key i both sit at position i. ``seq_k`` (default Sk) keys are
+    valid; ``window`` > 0 limits each query to its last ``window``
+    positions. A row with no visible key is zeros. Returns (B, Sq, H, D)
+    in q's dtype."""
+    B, Sq, H, D = q.shape
+    Sk, KH = k.shape[1], k.shape[2]
+    seq_k = Sk if seq_k is None else int(seq_k)
+    if H % KH:
+        raise ValueError(
+            f"query heads ({H}) must be a multiple of kv heads ({KH})")
+    if q.device.type == "cpu":
+        return chunked_attention(q, k, v, causal=causal, window=window,
+                                 kv_len=seq_k)
+    for t in (q, k, v):
+        if t.device != q.device:
+            raise ValueError(f"all inputs must be on {q.device}, "
+                             f"got {t.device}")
+        if not t.is_contiguous():
+            raise ValueError("the CUDA kernel takes contiguous tensors only")
+    if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype \
+            or v.dtype != q.dtype:
+        raise TypeError(f"q, k and v must share float32 or bfloat16, got "
+                        f"{q.dtype}/{k.dtype}/{v.dtype}")
+    if k.shape != (B, Sk, KH, D) or v.shape != k.shape \
+            or D not in FLASH_HEAD_DIMS:
+        raise ValueError(f"k and v must be (B, Sk, KH, D) like q's batch "
+                         f"and head dim, with D in {FLASH_HEAD_DIMS}")
+    if not 0 <= seq_k <= Sk or window < 0:
+        raise ValueError(f"seq_k {seq_k} must lie in [0, {Sk}] and window "
+                         f"{window} must not be negative")
+    out = torch.empty_like(q)
+    lib = _build.library("flash_attention")
+    fn = _build.bind(lib, "flash_attention_fwd", 4, 10)
+    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Sq,
+            Sk, KH, H // KH, D, seq_k, int(bool(causal)), int(window),
+            _DTYPE_CODE[q.dtype],
+            torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check("flash_attention", "flash_attention_fwd", rc)
+    _build.LAUNCHES["flash_attention"] += 1
+    return out
 
 
 def paged_flash_prefill(q, k_pages, v_pages, block_tables, q_offset: int,

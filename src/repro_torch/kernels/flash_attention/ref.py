@@ -1,8 +1,45 @@
-"""Plain PyTorch version of the paged flash-prefill kernel."""
+"""Plain PyTorch versions of the flash-attention kernels, and the full
+softmax oracle ``attention_ref``.
+
+The dense kernel's plain version is :func:`repro_torch.models.layers.
+chunked_attention` itself (start-aligned positions, as the kernel's), which
+``ops.flash_attention`` runs for CPU tensors.
+"""
 from __future__ import annotations
 
-from repro_torch.kernels.paged_attention.ref import gather_kv
+import math
+
+import torch
+
+from repro_torch.kernels.paged_attention.ref import NEG_INF, gather_kv
 from repro_torch.models.layers import chunked_attention
+
+
+def attention_ref(q, k, v, *, causal=True, window=0, kv_len=None):
+    """Full-softmax attention, the port of the JAX package's oracle
+    (``repro/kernels/flash_attention/ref.py``). q: (B, Sq, H, D); k, v:
+    (B, Sk, KH, D). Query positions are END-aligned (row i sits at
+    i + Sk - Sq, decode-style); the flash kernel's are start-aligned, so
+    the two agree when Sq == Sk. Returns (B, Sq, H, D)."""
+    B, Sq, H, D = q.shape
+    Sk, KH = k.shape[1], k.shape[2]
+    G = H // KH
+    dev = q.device
+    qr = q.reshape(B, Sq, KH, G, D).float()
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qr, k.float()) * (1.0 / math.sqrt(D))
+    qpos = torch.arange(Sq, device=dev)[:, None] + (Sk - Sq)
+    kpos = torch.arange(Sk, device=dev)[None, :]
+    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=dev)
+    if causal:
+        mask = mask & (kpos <= qpos)
+    if window:
+        mask = mask & ((qpos - kpos) < window)
+    if kv_len is not None:
+        mask = mask & (kpos < kv_len)
+    s = torch.where(mask, s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", p, v.float())
+    return out.reshape(B, Sq, H, D).to(q.dtype)
 
 
 def paged_prefill_attention_ref(q, k_pages, v_pages, block_tables, q_offset,

@@ -70,15 +70,18 @@ def rope(x, positions, theta=10000.0):
 # attention (plain PyTorch)
 # ---------------------------------------------------------------------------
 
-def chunked_attention(q, k, v, *, causal=True, q_offset=0, kv_len=None,
-                      q_chunk=512):
+def chunked_attention(q, k, v, *, causal=True, window=0, q_offset=0,
+                      kv_len=None, q_chunk=512):
     """Masked softmax attention, one block of ``q_chunk`` queries at a time.
 
     q: (B, Sq, H, D); k, v: (B, Sk, KH, D) with H % KH == 0 (GQA).
     ``q_offset``: absolute position of q[0] (chunked prefill);
-    ``kv_len``: (B,) tensor or int of valid kv positions (padded cache).
+    ``kv_len``: (B,) tensor or int of valid kv positions (padded cache);
+    ``window``: sliding-window size (0 = unlimited).
     Scores in float32; probabilities are cast to v's dtype before the PV
-    product and accumulated in float32, as the reference does. Returns
+    product and accumulated in float32, as the reference does. A row with
+    no visible key is zeros, as in the flash kernel (the reference's
+    online softmax averages such a row; no model path has one). Returns
     (B, Sq, H, D) in q's dtype.
     """
     B, Sq, H, D = q.shape
@@ -99,12 +102,14 @@ def chunked_attention(q, k, v, *, causal=True, q_offset=0, kv_len=None,
         qb = q[:, s0:s0 + c].reshape(B, c, KH, G, D).float()
         s = torch.einsum("bqhgd,bkhd->bhgqk", qb, kf) * scale
         mask = valid
+        qpos = q_offset + s0 + torch.arange(c, device=dev)
         if causal:
-            qpos = q_offset + s0 + torch.arange(c, device=dev)
             mask = mask & (kpos[None, :] <= qpos[:, None])
+        if window:
+            mask = mask & ((qpos[:, None] - kpos[None, :]) < window)
         s = torch.where(mask, s, NEG_INF)
         m = s.amax(dim=-1, keepdim=True)
-        p = torch.exp(s - m)
+        p = torch.where(mask, torch.exp(s - m), 0.0)
         l = p.sum(dim=-1, keepdim=True)
         o = torch.einsum("bhgqk,bkhd->bhgqd", p.to(v.dtype).float(), vf)
         o = o / torch.clamp(l, min=1e-30)
@@ -113,13 +118,14 @@ def chunked_attention(q, k, v, *, causal=True, q_offset=0, kv_len=None,
 
 
 def decode_attention_appended(q, k_cache, v_cache, k_new, v_new, *,
-                              prev_len):
+                              prev_len, window=0):
     """Single-token attention over (existing cache) + (the new token's kv),
     without writing the new kv into the cache first.
 
     q: (B, 1, H, D); caches: (B, KH, Smax, D) kv-heads-major;
     k_new/v_new: (B, KH, D); prev_len: (B,) valid positions before this
-    token. Returns (B, 1, H, D).
+    token; ``window``: sliding-window size (0 = unlimited). Returns
+    (B, 1, H, D).
     """
     B, _, H, D = q.shape
     KH, Smax = k_cache.shape[1], k_cache.shape[2]
@@ -129,6 +135,8 @@ def decode_attention_appended(q, k_cache, v_cache, k_new, v_new, *,
     s = torch.einsum("bhgd,bhkd->bhgk", qr, k_cache.float()) * scale
     pos = torch.arange(Smax, device=q.device)
     mask = pos[None, :] < prev_len[:, None]
+    if window:
+        mask = mask & (prev_len[:, None] - pos[None, :] < window)
     s = torch.where(mask[:, None, None, :], s, NEG_INF)
     s_new = torch.einsum("bhgd,bhd->bhg", qr, k_new.float()) * scale
     m = torch.maximum(s.amax(dim=-1), s_new)
@@ -188,21 +196,30 @@ def project_qkv(x, p, cfg, positions):
 
 
 def attention_layer(x, p, cfg, *, positions, cache=None, cache_index=None,
-                    return_kv=False):
+                    window=0, return_kv=False, use_kernel=False):
     """x: (B, S, D). Without a cache (prefill): causal self-attention, and
-    with ``return_kv`` the second result is the rope'd (k, v) pair. With a
+    with ``return_kv`` the second result is the rope'd (k, v) pair;
+    ``use_kernel`` runs it through the flash kernel's wrapper. With a
     cache (decode, S == 1): cache = dict(k, v) of (B, KH, Smax, hd) and
     cache_index (B,) lengths before this token; the second result is the
-    new token's (k, v) vectors, for the caller to write once."""
+    new token's (k, v) vectors, for the caller to write once. ``window``:
+    sliding-window size (0 = unlimited)."""
     B, S, _ = x.shape
     H, hd = cfg.num_heads, cfg.head_dim
     q, k, v = project_qkv(x, p, cfg, positions)
     if cache is None:
-        out = chunked_attention(q, k, v, causal=cfg.causal)
+        if use_kernel:
+            # the wrapper's module imports this one for its plain version
+            from repro_torch.kernels.flash_attention.ops import \
+                flash_attention as attend
+        else:
+            attend = chunked_attention
+        out = attend(q, k, v, causal=cfg.causal, window=window)
         new_cache = (k, v) if return_kv else None
     else:
         out = decode_attention_appended(q, cache["k"], cache["v"], k[:, 0],
-                                        v[:, 0], prev_len=cache_index)
+                                        v[:, 0], prev_len=cache_index,
+                                        window=window)
         new_cache = (k[:, 0], v[:, 0])
     return out.reshape(B, S, H * hd) @ p["wo"], new_cache
 

@@ -1,8 +1,11 @@
 """Model facade (the port of ``repro/models/model.py``): init / prefill /
-decode_step / logits over the dense transformer stack.
+decode_step / init_cache / logits, dispatching on the config's family:
 
-Only the ``dense`` family is ported; the other families raise
-``NotImplementedError`` naming the ROADMAP item that brings them.
+  dense          -> transformer stack
+  ssm | hybrid   -> mamba2 / zamba2 stack
+
+The moe, vlm and audio families raise ``NotImplementedError`` naming the
+ROADMAP item that brings them.
 """
 from __future__ import annotations
 
@@ -10,15 +13,27 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.models import hybrid as hybrid_mod
 from repro_torch.models import transformer as tf_mod
 
 _NOT_PORTED = {
     "moe": "ROADMAP Queue 1 item 7 (MoE in 'dense' mode, phi3.5-moe)",
     "vlm": "ROADMAP Queue 1 item 7 (the vlm family of the LM facade)",
-    "ssm": "ROADMAP Queue 1 item 9 (SSM/hybrid models)",
-    "hybrid": "ROADMAP Queue 1 item 9 (SSM/hybrid models)",
     "audio": "ROADMAP Queue 1 item 13 (encoder serving surfaces)",
 }
+# context length beyond which hybrid archs switch their (shared) attention
+# to a sliding window (the reference's long-context adaptation)
+FULL_ATTN_MAX_CTX = 32_768
+
+
+def _backend(cfg: ModelConfig):
+    return hybrid_mod if cfg.family in ("ssm", "hybrid") else tf_mod
+
+
+def _window_for(cfg: ModelConfig, ctx_len: int) -> int:
+    if cfg.family == "hybrid" and ctx_len > FULL_ATTN_MAX_CTX:
+        return cfg.sliding_window_long
+    return 0
 
 
 class LM:
@@ -26,7 +41,7 @@ class LM:
     passed to every call."""
 
     def __init__(self, cfg: ModelConfig):
-        if cfg.family != "dense":
+        if cfg.family not in ("dense", "ssm", "hybrid"):
             raise NotImplementedError(
                 f"family {cfg.family!r} is not ported yet: "
                 f"{_NOT_PORTED.get(cfg.family, 'see ROADMAP Queue 1')}")
@@ -41,7 +56,7 @@ class LM:
         if generator is None:
             generator = torch.Generator(device=resolve_device(device))
             generator.manual_seed(0)
-        return tf_mod.init_params(generator, self.cfg)
+        return _backend(self.cfg).init_params(generator, self.cfg)
 
     # -- inputs / outputs --------------------------------------------------
     def embed_inputs(self, params, batch):
@@ -57,19 +72,44 @@ class LM:
         return (hidden @ head).float()
 
     # -- serving -----------------------------------------------------------
-    def prefill(self, params, batch, *, max_len=None, last_index=None):
+    def prefill(self, params, batch, *, max_len=None, last_index=None,
+                use_kernel=False):
         """Returns (logits of position ``last_index`` (default: the last)
-        (B, V) float32, cache)."""
+        (B, V) float32, cache). The sliding window follows ``max_len`` (the
+        cache's length), not the prompt's, as in the reference.
+        ``use_kernel``: the prompt's attention and SSD scans through the
+        hand-written kernels' wrappers."""
         x = self.embed_inputs(params, batch)
-        hidden, cache = tf_mod.prefill(params, x, self.cfg, max_len=max_len)
+        window = _window_for(self.cfg, max_len or x.shape[1])
+        hidden, cache = _backend(self.cfg).prefill(
+            params, x, self.cfg, max_len=max_len, window=window,
+            use_kernel=use_kernel)
         idx = hidden.shape[1] - 1 if last_index is None else last_index
         return self.logits(params, hidden[:, idx]), cache
 
     def decode_step(self, params, tokens, cache):
-        """tokens: (B,) integer. Returns (logits (B, V), new cache)."""
+        """tokens: (B,) integer. Returns (logits (B, V), cache), the cache
+        updated in place."""
+        window = _window_for(self.cfg, _cache_ctx_len(self.cfg, cache))
         x = params["embed"][tokens.long()][:, None]
-        hidden, cache = tf_mod.decode_step(params, x, self.cfg, cache)
+        hidden, cache = _backend(self.cfg).decode_step(params, x, self.cfg,
+                                                       cache, window=window)
         return self.logits(params, hidden[:, 0]), cache
+
+    def init_cache(self, batch, max_len, device=None):
+        """Zeroed decode cache for ``batch`` sequences of up to ``max_len``
+        tokens in the param dtype on ``device`` (default: the CUDA
+        device)."""
+        return _backend(self.cfg).init_cache(
+            self.cfg, batch, max_len, getattr(torch, self.cfg.param_dtype),
+            resolve_device(device))
+
+
+def _cache_ctx_len(cfg, cache):
+    # kv caches are (L|G, B, KH, S, hd): the sequence is dim 3
+    if cfg.family in ("ssm", "hybrid"):
+        return cache["k"].shape[3] if "k" in cache else 0
+    return cache["k"].shape[3]
 
 
 def make_model(cfg: ModelConfig) -> LM:

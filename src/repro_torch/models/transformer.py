@@ -52,28 +52,30 @@ def layer_params(params, i: int):
 
 
 def _block(x, lp, cfg, positions, *, cache=None, cache_index=None,
-           return_kv=False):
+           window=0, return_kv=False, use_kernel=False):
     """One transformer block. Returns (x, new_cache_or_kv)."""
     h, kv = attention_layer(
         rms_norm(x, lp["norm1"], cfg.norm_eps), lp["attn"], cfg,
         positions=positions, cache=cache, cache_index=cache_index,
-        return_kv=return_kv)
+        window=window, return_kv=return_kv, use_kernel=use_kernel)
     x = x + h
     g = rms_norm(x, lp["norm2"], cfg.norm_eps)
     return x + mlp_layer(g, lp["mlp"]), kv
 
 
-def prefill(params, x, cfg, *, max_len=None):
+def prefill(params, x, cfg, *, max_len=None, window=0, use_kernel=False):
     """Forward that also materializes the KV cache for decode.
     x: (B, S, D) embeddings. Returns (hidden (B,S,D), cache) with cache
-    k/v (L, B, KH, max_len, hd) kv-heads-major and len (B,)."""
+    k/v (L, B, KH, max_len, hd) kv-heads-major and len (B,).
+    ``use_kernel``: attention through the flash kernel's wrapper."""
     B, S, _ = x.shape
     max_len = max_len or S
     positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
     ks, vs = [], []
     for i in range(cfg.num_layers):
         x, (k, v) = _block(x, layer_params(params, i), cfg, positions,
-                           return_kv=True)
+                           window=window, return_kv=True,
+                           use_kernel=use_kernel)
         ks.append(k.transpose(1, 2))
         vs.append(v.transpose(1, 2))
     kc, vc = torch.stack(ks), torch.stack(vs)
@@ -86,27 +88,48 @@ def prefill(params, x, cfg, *, max_len=None):
     return rms_norm(x, params["final_norm"], cfg.norm_eps), cache
 
 
-def decode_step(params, x, cfg, cache):
+def decode_step(params, x, cfg, cache, *, window=0):
     """x: (B, 1, D) embedding of the new token. Returns (hidden (B,1,D),
-    cache); the new kv vectors are written into a copy of the cache after
-    the layer loop, at position ``cache["len"]``."""
+    cache). The cache is updated IN PLACE and returned (the reference
+    returns a new one): the layer loop only collects each layer's new kv
+    vectors, written after it at position ``cache["len"]``."""
     lens = cache["len"]
     positions = lens[:, None].long()
     new_k, new_v = [], []
     for i in range(cfg.num_layers):
         x, (kn, vn) = _block(x, layer_params(params, i), cfg, positions,
                              cache={"k": cache["k"][i], "v": cache["v"][i]},
-                             cache_index=lens)
+                             cache_index=lens, window=window)
         new_k.append(kn)
         new_v.append(vn)
-    B = x.shape[0]
-    bidx = torch.arange(B, device=x.device)
-    kc, vc = cache["k"].clone(), cache["v"].clone()
-    # (B, S) leading view: row (b, lens[b]) of every layer and kv head
-    kc.permute(1, 3, 0, 2, 4)[bidx, lens.long()] = \
-        torch.stack(new_k, dim=1).to(kc.dtype)
-    vc.permute(1, 3, 0, 2, 4)[bidx, lens.long()] = \
-        torch.stack(new_v, dim=1).to(vc.dtype)
-    new_cache = {"k": kc, "v": vc, "len": lens + 1}
-    return rms_norm(x, params["final_norm"], cfg.norm_eps), new_cache
+    _scatter_new_kv(cache["k"], torch.stack(new_k), lens)
+    _scatter_new_kv(cache["v"], torch.stack(new_v), lens)
+    cache["len"] = lens + 1
+    return rms_norm(x, params["final_norm"], cfg.norm_eps), cache
+
+
+def _scatter_new_kv(cache, new, lens):
+    """Write new kv vectors into the stacked cache, in place.
+
+    cache: (L, B, KH, S, hd); new: (L, B, KH, hd); lens: (B,) positions.
+    A position past S is dropped, as the reference's out-of-bounds scatter
+    drops it (a free slot's length keeps growing while the slot cache steps
+    every slot): that row rewrites position S - 1 with its own value, so
+    nothing waits on the host to filter rows."""
+    B, S = cache.shape[1], cache.shape[3]
+    bidx = torch.arange(B, device=cache.device)
+    pos = torch.clamp(lens, max=S - 1).long()
+    view = cache.permute(1, 3, 0, 2, 4)          # (B, S, L, KH, hd)
+    dropped = (lens >= S)[:, None, None, None]
+    view[bidx, pos] = torch.where(dropped, view[bidx, pos],
+                                  new.permute(1, 0, 2, 3).to(cache.dtype))
+
+
+def init_cache(cfg, batch, max_len, dtype, device):
+    """Zeroed kv-heads-major cache: k/v (L, batch, KH, max_len, hd), len
+    (batch,) int32."""
+    shape = (cfg.num_layers, batch, cfg.num_kv_heads, max_len, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device),
+            "len": torch.zeros((batch,), dtype=torch.int32, device=device)}
 

@@ -1,8 +1,17 @@
-"""Paged serving backend (the port of ``PagedBackend`` in the JAX package's
+"""Engine cache backends (the port of the JAX package's
 ``repro/serving/backends.py``).
 
-A vLLM-style paged KV pool with block tables, for the dense attention
-family. The pools are two tensors (L, num_pages, page_size, KH, hd) on the
+SlotBackend  -- contiguous per-slot cache for every ported family (dense
+                attention, SSM, hybrid): the cache has a batch axis of
+                ``max_slots``; a prefill fills one slot's rows in place,
+                decode steps every slot.
+PagedBackend -- vLLM-style paged KV pool with block tables, for the dense
+                attention family.
+
+The paged pools are two tensors (L, num_pages, page_size, KH, hd) on the
+backend's device, updated IN PLACE (``index_put_``) where the reference
+rebuilt immutable arrays; the host-side allocator is
+:class:`~repro_torch.serving.kv_cache.PagedKVCache`. The pools are two tensors (L, num_pages, page_size, KH, hd) on the
 backend's device, updated IN PLACE (``index_put_``) where the reference
 rebuilt immutable arrays; the host-side allocator is
 :class:`~repro_torch.serving.kv_cache.PagedKVCache`.
@@ -30,9 +39,16 @@ Two decode paths, as in the reference:
 * False: the plain versions directly (the reference tier), with the
   per-step pool write of the reference's ``_fused_impl``.
 
+On the slot backend ``use_kernel`` picks the prefill tier: True runs a
+one-shot prompt's SSD scans (``ssd``) and its attention without a cache
+(``flash_attention``) through the hand-written kernels; False runs the
+plain versions. Its chunked prefill (attention families) and its decode
+run plain PyTorch in both tiers, as the reference's do.
+
 Not ported in this slice (they raise ``NotImplementedError``):
-speculative decoding (``spec_verify``) and swap preemption
-(``swap_out`` / ``swap_in``); tensor-parallel meshes.
+speculative decoding (``spec_verify`` and the slot backend's spec
+helpers) and swap preemption (``swap_out`` / ``swap_in``); tensor-parallel
+meshes.
 
 Prefill protocol, shared with the engine::
 
@@ -55,12 +71,15 @@ from repro_torch.kernels.paged_attention.ops import (fused_decode_attention,
 from repro_torch.kernels.paged_attention.ref import (
     fused_decode_attention_ref, paged_attention_ref)
 from repro_torch.models import LM
-from repro_torch.models.layers import mlp_layer, project_qkv, rms_norm
+from repro_torch.models.layers import (chunked_attention, mlp_layer,
+                                       project_qkv, rms_norm)
 from repro_torch.models.transformer import _block, layer_params
 from repro_torch.serving.kv_cache import OutOfPages, PagedKVCache
 from repro_torch.serving.sampler import fold_seeds, sample_from_logits
 
 ATTENTION_FAMILIES = ("dense",)
+_SPEC_NOT_PORTED = ("speculative decoding is not ported yet (ROADMAP Queue 1 "
+                    "item 7)")
 
 # -- host-transfer accounting -------------------------------------------------
 # The fused decode path's contract is that logits never cross to the host;
@@ -137,6 +156,199 @@ class PrefillTask:
     @property
     def done(self) -> bool:
         return self.pos >= len(self.prompt)
+
+
+class SlotBackend:
+    """Contiguous cache with ``max_slots`` sequences of up to ``max_len``
+    tokens, for every ported family."""
+
+    def __init__(self, model: LM, params, *, max_slots: int, max_len: int,
+                 use_kernel: bool = False, mesh=None, device=None):
+        if mesh is not None:
+            raise NotImplementedError(
+                "tensor-parallel meshes are not ported yet (ROADMAP Queue 1 "
+                "item 11)")
+        self.device = resolve_device(device)
+        if params["embed"].device != self.device:
+            raise ValueError(f"params live on {params['embed'].device}, the "
+                             f"backend on {self.device}")
+        self.model = model
+        self.params = params
+        self.cfg = model.cfg
+        self.max_slots = max_slots
+        self.max_len = max_len
+        self.use_kernel = use_kernel
+        self.dtype = getattr(torch, self.cfg.param_dtype)
+        self.cache = model.init_cache(max_slots, max_len, device=self.device)
+        self._layers = ([layer_params(params, i)
+                         for i in range(self.cfg.num_layers)]
+                        if self.supports_chunked_prefill else None)
+        self.free_slots = list(range(max_slots - 1, -1, -1))
+        self.slot_of: dict[str, int] = {}
+        self._dec_st = None         # device-resident per-slot decode state
+
+    def _put(self, x, dtype=None):
+        """Host array -> tensor on the backend's device."""
+        return torch.as_tensor(np.asarray(x), dtype=dtype, device=self.device)
+
+    # -- capacity -------------------------------------------------------------
+    def can_admit(self, n_prompt: int) -> bool:
+        return bool(self.free_slots) and n_prompt < self.max_len
+
+    @property
+    def supports_chunked_prefill(self) -> bool:
+        # SSM/hybrid state cannot be rebuilt from a cache slice, so those
+        # families ingest prompts in one shot whatever the budget
+        return self.cfg.family in ATTENTION_FAMILIES
+
+    # -- prefill protocol --------------------------------------------------------
+    def start_prefill(self, seq_id: str, prompt: list) -> PrefillTask:
+        slot = self.free_slots.pop()
+        self.slot_of[seq_id] = slot
+        return PrefillTask(seq_id=seq_id, prompt=list(prompt))
+
+    def prefill_chunk(self, task: PrefillTask, budget: int | None = None):
+        """Compute up to ``budget`` prompt tokens (all remaining if None, or
+        for the SSM/hybrid families). Returns (last_token_logits (V,) on
+        the device | None, tokens_computed)."""
+        S = len(task.prompt)
+        if budget is None or not self.supports_chunked_prefill:
+            chunk = task.remaining
+        else:
+            chunk = min(max(budget, 1), task.remaining)
+        if task.pos == 0 and chunk == S:
+            logits = self._one_shot(task.seq_id, task.prompt)
+            task.pos = S
+            task.chunks += 1
+            return logits, S
+        logits = self._compute_chunk(task, chunk)
+        task.pos += chunk
+        task.chunks += 1
+        if task.done:
+            return logits, chunk
+        return None, chunk
+
+    def prefill(self, seq_id: str, prompt: list):
+        """One-shot convenience: returns last-token logits (V,)."""
+        task = self.start_prefill(seq_id, prompt)
+        logits, _ = self.prefill_chunk(task, None)
+        return logits
+
+    def _one_shot(self, seq_id: str, prompt: list):
+        """Whole prompt in one forward at its exact length (the reference
+        pads attention prompts to power-of-two buckets for jit, which eager
+        torch does not need; SSM/hybrid state would be polluted by padding
+        anyway). The result overwrites the slot's rows of every cache
+        tensor in place, where the reference inserts a new slot cache."""
+        slot = self.slot_of[seq_id]
+        toks = self._put(prompt, torch.long)[None]
+        logits, one = self.model.prefill(
+            self.params, {"tokens": toks}, max_len=self.max_len,
+            use_kernel=self.use_kernel)
+        for key, val in one.items():
+            if key == "len":
+                self.cache["len"][slot] = len(prompt)
+            else:
+                self.cache[key][:, slot] = val[:, 0]
+        return logits[0]
+
+    def _compute_chunk(self, task: PrefillTask, chunk: int):
+        """One prefill chunk straight into the slot's rows of the stacked
+        cache (attention families): the chunk's KV is written at
+        [pos, pos + chunk), then its queries attend over the slot's rows,
+        masked to [0, pos + chunk)."""
+        cfg, slot, start = self.cfg, self.slot_of[task.seq_id], task.pos
+        kv_len = start + chunk
+        toks = self._put(task.prompt[start:kv_len], torch.long)[None]
+        h = self.model.embed_inputs(self.params, {"tokens": toks})
+        positions = start + torch.arange(chunk, device=self.device)[None, :]
+        for i, lp in enumerate(self._layers):
+            kc, vc = self.cache["k"][i], self.cache["v"][i]  # (B, KH, S, hd)
+
+            def write_attend(q, k, v, kc=kc, vc=vc):
+                kc[slot, :, start:kv_len] = k[0].transpose(0, 1).to(self.dtype)
+                vc[slot, :, start:kv_len] = v[0].transpose(0, 1).to(self.dtype)
+                return chunked_attention(
+                    q, kc[slot].transpose(0, 1)[None],
+                    vc[slot].transpose(0, 1)[None], causal=True,
+                    q_offset=start, kv_len=kv_len)
+
+            h = _chunk_layer(h, lp, cfg, positions, write_attend)
+        h = rms_norm(h, self.params["final_norm"], cfg.norm_eps)
+        self.cache["len"][slot] = kv_len
+        return self.model.logits(self.params, h[:, chunk - 1])[0]
+
+    # -- decode -----------------------------------------------------------------
+    def decode_batch(self, tokens_by_slot: np.ndarray):
+        """tokens_by_slot: (max_slots,). Steps every slot. Returns the
+        (max_slots, V) logits on the host."""
+        logits, self.cache = self.model.decode_step(
+            self.params, self._put(tokens_by_slot, torch.long), self.cache)
+        return _logits_to_host(logits)
+
+    def _fused_impl(self, st, K):
+        """K fused decode+sample+stop-check steps on the device. A slot
+        stops updating (``done``) once it hits its stop token or generation
+        limit; the cache still steps every slot, as the legacy path does
+        for freed slots, so live slots compute exactly what they would
+        alone. Returns (tokens (K, B), produced (B,), done (B,), st)."""
+        B = st["tokens"].shape[0]
+        tokens, n_gen = st["tokens"], st["n_gen"]
+        done = torch.zeros((B,), dtype=torch.bool, device=self.device)
+        produced = torch.zeros((B,), dtype=torch.int32, device=self.device)
+        out = torch.zeros((K, B), dtype=torch.int32, device=self.device)
+        for i in range(K):
+            logits, self.cache = self.model.decode_step(self.params, tokens,
+                                                        self.cache)
+            live = st["active"] & ~done
+            tokens, n_gen, done, produced = _sample_and_latch(
+                st, logits, tokens, n_gen, done, produced, live)
+            out[i] = tokens
+        return out, produced, done, dict(st, tokens=tokens, n_gen=n_gen)
+
+    def fused_decode(self, K: int, host_state: dict | None = None):
+        """Run K decode steps on the device; sync only token ids and flags,
+        in one device->host copy. ``host_state`` (when the engine's slot
+        composition changed) re-seeds the device-resident state. Returns
+        (tokens (K, max_slots), produced, done) numpy arrays."""
+        if host_state is not None:
+            self._dec_st = _upload_state(host_state, self.device)
+        if self._dec_st is None:
+            raise RuntimeError("fused_decode needs host_state on the first "
+                               "call")
+        out, produced, done, self._dec_st = self._fused_impl(self._dec_st, K)
+        host = torch.cat([out, produced[None], done[None].to(torch.int32)])
+        host = host.cpu().numpy()
+        return host[:K], host[K], host[K + 1].astype(bool)
+
+    # -- not ported in this slice ------------------------------------------------
+    def spec_headroom(self, k: int) -> int:
+        raise NotImplementedError(_SPEC_NOT_PORTED)
+
+    def spec_verify(self, draft_tokens, host_state=None):
+        raise NotImplementedError(_SPEC_NOT_PORTED)
+
+    def reset_lens(self, lens_by_seq: dict) -> None:
+        raise NotImplementedError(_SPEC_NOT_PORTED)
+
+    def spec_catch_up(self, seq_id: str, tokens: list, from_pos: int):
+        raise NotImplementedError(_SPEC_NOT_PORTED)
+
+    # -- lifecycle -----------------------------------------------------------------
+    def free(self, seq_id: str):
+        slot = self.slot_of.pop(seq_id)
+        self.free_slots.append(slot)
+
+    def publish(self, seq_id: str, tokens: list) -> None:
+        """Preemption hook: the slot backend has no content-addressed cache
+        to publish into; a preempted sequence restores by full
+        recompute."""
+
+    def slot(self, seq_id: str) -> int:
+        return self.slot_of[seq_id]
+
+    def cache_stats(self) -> dict:
+        return {}
 
 
 class PagedBackend:
@@ -516,8 +728,7 @@ class PagedBackend:
 
     # -- not ported in this slice ------------------------------------------------
     def spec_verify(self, draft_tokens, host_state=None):
-        raise NotImplementedError("speculative decoding is not ported yet "
-                                  "(ROADMAP Queue 1 item 7)")
+        raise NotImplementedError(_SPEC_NOT_PORTED)
 
     def swap_out(self, seq_id: str) -> dict:
         raise NotImplementedError("swap preemption is not ported yet "

@@ -29,9 +29,13 @@ Features, as in the reference:
   recompute-via-prefix-cache with the same sampling state, so its stream
   stays token-identical to an uninterrupted run.
 
+Two cache backends, as in the reference: ``backend="paged"`` (dense
+family; prefix cache, page pool) and ``backend="slots"`` (every ported
+family: dense, SSM and hybrid; one contiguous cache row per slot).
+
 Not ported in this slice (``NotImplementedError`` naming the ROADMAP
-item): ``backend="slots"``, speculative decoding (``spec_tokens > 0``),
-swap preemption (``preempt_swap``) and tensor-parallel ``mesh``.
+item): speculative decoding (``spec_tokens > 0``), swap preemption
+(``preempt_swap``) and tensor-parallel ``mesh``.
 """
 from __future__ import annotations
 
@@ -43,7 +47,8 @@ import numpy as np
 
 from repro_torch.api.schemas import StreamDelta
 from repro_torch.models import LM
-from repro_torch.serving.backends import PagedBackend, PrefillTask
+from repro_torch.serving.backends import (PagedBackend, PrefillTask,
+                                          SlotBackend)
 from repro_torch.serving.request import (InferenceRequest, RequestMetrics,
                                          RequestOutput)
 from repro_torch.serving.sampler import (SEED_MOD, sample_token,
@@ -60,7 +65,7 @@ class _RealClock:
 class EngineConfig:
     max_slots: int = 8
     max_seq_len: int = 512
-    backend: str = "paged"            # paged (slots: not ported yet)
+    backend: str = "paged"            # paged | slots
     page_size: int = 64
     num_pages: int | None = None
     use_kernel: bool = False
@@ -152,10 +157,6 @@ class ContinuousBatchingEngine:
         self.model = model
         self.cfg = cfg or EngineConfig()
         self.clock = clock or _RealClock()
-        if self.cfg.backend != "paged":
-            raise NotImplementedError(
-                f"backend={self.cfg.backend!r} is not ported yet (ROADMAP "
-                "Queue 1 item 8, SlotBackend)")
         if self.cfg.spec_tokens > 0:
             raise NotImplementedError("speculative decoding is not ported "
                                       "yet (ROADMAP Queue 1 item 7)")
@@ -165,11 +166,20 @@ class ContinuousBatchingEngine:
         if self.cfg.mesh is not None:
             raise NotImplementedError("tensor-parallel meshes are not ported "
                                       "yet (ROADMAP Queue 1 item 11)")
-        self.backend = PagedBackend(
-            model, params, max_slots=self.cfg.max_slots,
-            max_len=self.cfg.max_seq_len, page_size=self.cfg.page_size,
-            num_pages=self.cfg.num_pages, use_kernel=self.cfg.use_kernel,
-            enable_prefix_cache=self.cfg.enable_prefix_cache, device=device)
+        if self.cfg.backend == "paged":
+            self.backend = PagedBackend(
+                model, params, max_slots=self.cfg.max_slots,
+                max_len=self.cfg.max_seq_len, page_size=self.cfg.page_size,
+                num_pages=self.cfg.num_pages, use_kernel=self.cfg.use_kernel,
+                enable_prefix_cache=self.cfg.enable_prefix_cache,
+                device=device)
+        else:
+            if self.cfg.enable_prefix_cache:
+                raise ValueError("prefix caching requires backend='paged'")
+            self.backend = SlotBackend(
+                model, params, max_slots=self.cfg.max_slots,
+                max_len=self.cfg.max_seq_len, use_kernel=self.cfg.use_kernel,
+                device=device)
         kwargs = {}
         if self.cfg.scheduling_policy == "priority" \
                 and self.cfg.qos_token_budgets:
@@ -223,21 +233,25 @@ class ContinuousBatchingEngine:
         if not self.backend.can_admit(n_prompt):
             return False
         if self.cfg.enable_preemption:
-            kv = self.backend.kv
-            if kv.pages_needed(n_prompt + 1) + self._appends_due() \
-                    > kv.free_pages:
+            kv = getattr(self.backend, "kv", None)
+            if kv is not None and kv.pages_needed(n_prompt + 1) \
+                    + self._appends_due() > kv.free_pages:
                 return False
         return True
 
     def _appends_due(self) -> int:
-        """Pages the next decode step must claim for its KV appends."""
-        kv = self.backend.kv
+        """Pages the next decode step must claim for its KV appends (0 for
+        the slot backend: its cache is pre-sized)."""
+        kv = getattr(self.backend, "kv", None)
+        if kv is None:
+            return 0
         return sum(1 for sid in self.backend.decoding
                    if kv.pages_needed(kv.length(sid) + 1)
                    > kv.pages_held(sid))
 
     def cache_stats(self) -> dict:
-        """Prefix-cache counters from the backend."""
+        """Prefix-cache counters from the backend (empty for the slot
+        backend)."""
         return self.backend.cache_stats()
 
     # -- preemption ---------------------------------------------------------------
@@ -261,17 +275,20 @@ class ContinuousBatchingEngine:
         return True
 
     def _page_deficit(self) -> int:
-        """Pages the next decode step needs beyond what the pool can
-        claim."""
-        return max(0, self._appends_due() - self.backend.kv.free_pages)
+        """Pages the next decode step needs beyond what the pool can claim
+        (0 for the slot backend: it never runs out mid-decode)."""
+        kv = getattr(self.backend, "kv", None)
+        if kv is None:
+            return 0
+        return max(0, self._appends_due() - kv.free_pages)
 
     def _admissible_ever(self, n_tokens: int) -> bool:
         """Whether an admission of ``n_tokens`` could EVER fit an empty
         engine -- preempting for one that cannot would thrash forever."""
         if n_tokens >= self.cfg.max_seq_len:
             return False
-        kv = self.backend.kv
-        return kv.pages_needed(n_tokens + 1) <= kv.num_pages - 1
+        kv = getattr(self.backend, "kv", None)
+        return kv is None or kv.pages_needed(n_tokens + 1) <= kv.num_pages - 1
 
     def _maybe_preempt(self):
         """Policy-driven eviction, two triggers: the pool cannot cover the

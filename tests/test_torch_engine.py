@@ -174,7 +174,7 @@ def test_engine_token_identical_to_jax(variant, llama, port_llama,
         assert teng.cache_stats()["hit_tokens"] > 0
 
 
-@pytest.mark.parametrize("overrides", [dict(backend="slots"),
+@pytest.mark.parametrize("overrides", [dict(backend="slots", spec_tokens=2),
                                        dict(spec_tokens=2),
                                        dict(preempt_swap=True),
                                        dict(mesh=object())],

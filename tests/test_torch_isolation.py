@@ -18,7 +18,7 @@ import torch
 
 from repro_torch.configs import REGISTRY, reduced
 from repro_torch.models import make_model
-from repro_torch.serving.backends import PagedBackend
+from repro_torch.serving.backends import PagedBackend, SlotBackend
 from repro_torch.serving.engine import ContinuousBatchingEngine, EngineConfig
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
@@ -79,6 +79,8 @@ def test_entry_points_refuse_to_fall_back_to_cpu(monkeypatch):
         ContinuousBatchingEngine(model, params, EngineConfig())
     with pytest.raises(RuntimeError, match="no CUDA device"):
         PagedBackend(model, params, max_slots=2, max_len=64)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        SlotBackend(model, params, max_slots=2, max_len=64)
     # naming the CPU is the one way onto it
     eng = ContinuousBatchingEngine(model, params, EngineConfig(), device="cpu")
     assert eng.backend.pools["k"].device.type == "cpu"
