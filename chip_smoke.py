@@ -17,25 +17,31 @@ package. Phases, each of which raises on a failed check (exit code 1):
    time (median of CUDA-event timed runs, L2 flushed before each) beside
    the plain version's, a library yardstick's where one PyTorch call
    computes the same function (``scaled_dot_product_attention``, which the
-   port never calls; the SSD scan has none) and the least time the card
-   could take.
+   port never calls; the SSD scan has none), the least time the card
+   could take, and the TFLOP/s it achieves. Times are call times (the
+   host issues the call inside the timed span); the kernel's and the
+   yardstick's device times (the host queues the call behind a spin
+   kernel) are printed below them and kept as ``device_ms`` and
+   ``library_device_ms``.
 3. Engine run at full width (llama3.2-3b, random bf16 weights from a
    seeded generator): after a short warm-up run, 8 requests sharing a
    1024-token prefix through the fused K=8 path with chunked prefill and
    the prefix cache; a decode-only window of the same workload, timed and
-   then traced with torch.profiler (device time by kernel, idle share);
-   2 requests through the per-step path; then a teacher-forced comparison
-   of the kernel tier against the plain tier (prefill chunks + decode
-   steps). The launch counters are set to 0 just before each path and
-   read just after it.
+   then traced with torch.profiler (device time by kernel group, idle
+   share); one prefill step (a 512-token chunk at 1024) timed and traced
+   the same way; 2 requests through the per-step path; then a
+   teacher-forced comparison of the kernel tier against the plain tier
+   (prefill chunks + decode steps). The launch counters are set to 0 just
+   before each path and read just after it.
 4. Slot engine at full width (zamba2-2.7b, random bf16 weights): after a
    warm-up, 8 prompts of 200..2048 tokens prefilled one-shot at their
    exact length through the kernel tier (54 ``ssd`` and 9
    ``flash_attention`` launches a prompt, checked) and 64 tokens each
-   through the fused K=8 path; 2 requests through the per-step path; then
-   a teacher-forced comparison of the kernel tier against the plain tier,
-   beside the plain tier's own spread when only the order of its sums
-   changes.
+   through the fused K=8 path; decode and prefill (one 2048-token
+   prompt) windows traced as in phase 3; 2 requests through the per-step
+   path; then a teacher-forced comparison of the kernel tier against the
+   plain tier, beside the plain tier's own spread when only the order of
+   its sums changes.
 5. A ``{"kernels": [...]}`` line, the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
 """
@@ -53,6 +59,7 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
+SPIN_CYCLES = 1_000_000        # queued before a device-timed call: ~0.5 ms
 BF16_FLOPS = 989e12            # dense tensor-core bf16, H100 SXM data sheet
 # relative-to-output-scale tolerances of kernel vs plain version:
 # bf16 -- the output is rounded to bf16 (2^-8 relative) and the plain
@@ -114,15 +121,22 @@ class Kernels:
         return t.randn(*shape, generator=self.gen, device=self.dev,
                        dtype=t.float32).to(dtype)
 
-    def time_ms(self, fn, n=25, warmup=3):
+    def time_ms(self, fn, n=25, warmup=3, device=False):
         """Median over ``n`` runs of one call, each timed with CUDA events
-        after an L2 flush (the engine meets every layer's pages cold)."""
+        after an L2 flush (the engine meets every layer's pages cold). The
+        host issues the call inside the timed span, so its own time to do
+        so counts where it exceeds the device's. With ``device`` a spin
+        kernel of about half a millisecond is queued before the first
+        event instead, so the host has queued the whole call before the
+        device reaches it and the events time the device's work alone."""
         t = self.torch
         for _ in range(warmup):
             fn()
         times = []
         for _ in range(n):
             self.flush_buf.zero_()
+            if device:
+                t.cuda._sleep(SPIN_CYCLES)
             a = t.cuda.Event(enable_timing=True)
             b = t.cuda.Event(enable_timing=True)
             a.record()
@@ -131,6 +145,18 @@ class Kernels:
             b.synchronize()
             times.append(a.elapsed_time(b))
         return statistics.median(times)
+
+    def timings(self, kernel, plain, library=None):
+        """Call times of a kernel, its plain version and its library
+        yardstick (None where there is none), and the device times of the
+        kernel and the yardstick."""
+        tm = self.time_ms
+        return dict(
+            ms=tm(kernel), plain_ms=tm(plain),
+            library_ms=None if library is None else tm(library),
+            device_ms=tm(kernel, device=True),
+            library_device_ms=(None if library is None
+                               else tm(library, device=True)))
 
     def pool(self, NP, page, KH, D, dtype):
         return (self.randn(NP, page, KH, D, dtype=dtype),
@@ -229,7 +255,8 @@ def run_kernel_checks(torch, dev):
         nbytes = io + n_pos * KH * D * 2 * 2
         flops = n_pos * KH * G * D * 4
         t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
-        return max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations"
+        return (max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations",
+                flops)
 
     # library yardstick: SDPA on the pre-gathered context (+ tail)
     S = 64 * 64
@@ -244,20 +271,20 @@ def run_kernel_checks(torch, dev):
     mask_tail = torch.cat(
         [mask_ctx, (tpos[None, :] < c["tl"][:, None])[:, None, None, :]],
         dim=-1)
-    lib_pa = K.time_ms(lambda: F.scaled_dot_product_attention(
-        qs, kg, vg, attn_mask=mask_ctx, enable_gqa=True))
-    lib_fd = K.time_ms(lambda: F.scaled_dot_product_attention(
-        qs, kgt, vgt, attn_mask=mask_tail, enable_gqa=True))
-    b_pa, by_pa = decode_bound(ctx)
-    b_fd, by_fd = decode_bound(ctx + tail)
+    b_pa, by_pa, f_pa = decode_bound(ctx)
+    b_fd, by_fd, f_fd = decode_bound(ctx + tail)
     results["paged_attention"] = dict(
-        max_abs_err=err_pa, ms=K.time_ms(lambda: paged_attention(*args)),
-        plain_ms=K.time_ms(lambda: paged_attention_ref(*args)),
-        bound_ms=b_pa, bound_by=by_pa, library_ms=lib_pa)
+        max_abs_err=err_pa, bound_ms=b_pa, bound_by=by_pa, flops=f_pa,
+        **K.timings(lambda: paged_attention(*args),
+                    lambda: paged_attention_ref(*args),
+                    lambda: F.scaled_dot_product_attention(
+                        qs, kg, vg, attn_mask=mask_ctx, enable_gqa=True)))
     results["fused_decode_attention"] = dict(
-        max_abs_err=err_fd, ms=K.time_ms(lambda: fused_decode_attention(*targs)),
-        plain_ms=K.time_ms(lambda: fused_decode_attention_ref(*targs)),
-        bound_ms=b_fd, bound_by=by_fd, library_ms=lib_fd)
+        max_abs_err=err_fd, bound_ms=b_fd, bound_by=by_fd, flops=f_fd,
+        **K.timings(lambda: fused_decode_attention(*targs),
+                    lambda: fused_decode_attention_ref(*targs),
+                    lambda: F.scaled_dot_product_attention(
+                        qs, kgt, vgt, attn_mask=mask_tail, enable_gqa=True)))
     del kg, vg, kgt, vgt
 
     # -- prefill: 512-token chunks at q_start 0, 1000 (straddles pages) and
@@ -275,6 +302,16 @@ def run_kernel_checks(torch, dev):
               dtype=bf16), "C=512 at 1000 (straddles pages), bf16"),
         (dict(B=2, C=8, H=56, KH=8, D=128, page=16, PPS=2, start=8,
               dtype=bf16), "G=7, tiny chunk, bf16"),
+        (dict(B=1, C=37, H=24, KH=8, D=128, page=16, PPS=16, start=100,
+              dtype=bf16), "C=37 G=3: rows end mid-tile, bf16"),
+        (dict(B=2, C=9, H=56, KH=8, D=128, page=16, PPS=8, start=50,
+              dtype=bf16), "C=9 G=7 at 50: rows end mid-tile, bf16"),
+        (dict(B=1, C=200, H=24, KH=8, D=128, page=16, PPS=40, start=300,
+              dtype=bf16), "page 16: a key tile spans 4 pages, bf16"),
+        (dict(B=1, C=100, H=16, KH=4, D=64, page=32, PPS=8, start=77,
+              dtype=bf16), "D=64 G=4 page 32, q_start 77, bf16"),
+        (dict(B=1, C=300, H=24, KH=8, D=128, page=128, PPS=8, start=600,
+              dtype=bf16), "page 128 > key tile, bf16"),
         (dict(B=1, C=5, H=4, KH=1, D=64, page=16, PPS=1, start=0,
               dtype=f32), "MQA, single page, f32"),
         (dict(B=1, C=512, H=24, KH=8, D=128, page=64, PPS=64, start=1024,
@@ -303,17 +340,14 @@ def run_kernel_checks(torch, dev):
     qpos = start + torch.arange(C, device=dev)
     pmask = kpos[None, :] <= qpos[:, None]
     results["paged_flash_prefill"] = dict(
-        max_abs_err=err_pf, ms=K.time_ms(lambda: paged_flash_prefill(*pm)),
-        plain_ms=K.time_ms(lambda: paged_prefill_attention_ref(*pm)),
-        bound_ms=max(t_b, t_f) * 1e3,
-        bound_by="bytes" if t_b >= t_f else "operations",
-        library_ms=K.time_ms(lambda: F.scaled_dot_product_attention(
-            qsd, kpg, vpg, attn_mask=pmask, enable_gqa=True)))
+        max_abs_err=err_pf, bound_ms=max(t_b, t_f) * 1e3,
+        bound_by="bytes" if t_b >= t_f else "operations", flops=flops,
+        **K.timings(lambda: paged_flash_prefill(*pm),
+                    lambda: paged_prefill_attention_ref(*pm),
+                    lambda: F.scaled_dot_product_attention(
+                        qsd, kpg, vpg, attn_mask=pmask, enable_gqa=True)))
     torch.cuda.synchronize()
-    for name, r in results.items():
-        print(f"  time {name:24s} kernel {r['ms']:.4f} ms  plain "
-              f"{r['plain_ms']:.4f} ms  sdpa {r['library_ms']:.4f} ms  "
-              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+    print_times(results)
     return results
 
 
@@ -321,11 +355,28 @@ def run_kernel_checks(torch, dev):
 # phase 2 (hybrid path): the SSD scan and dense flash attention
 # ---------------------------------------------------------------------------
 
+def print_times(results):
+    """Each timed kernel beside its plain version, its library yardstick
+    and its bound, with the TFLOP/s it achieves on the operations the bound
+    counts: call times first, then device times."""
+    for name, r in results.items():
+        lib, dlib = (("--", "--") if r["library_ms"] is None else
+                     (f"{r['library_ms']:.4f} ms",
+                      f"{r['library_device_ms']:.4f} ms"))
+        print(f"  time {name:24s} kernel {r['ms']:.4f} ms  plain "
+              f"{r['plain_ms']:.4f} ms  library {lib}  bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']})  "
+              f"{r['flops'] / r['ms'] / 1e9:.1f} TFLOP/s")
+        print(f"       {'(device time)':24s} kernel {r['device_ms']:.4f} ms  "
+              f"library {dlib}  "
+              f"{r['flops'] / r['device_ms'] / 1e9:.1f} TFLOP/s")
+
+
 def ssd_bound(b, s, h, p, n, Q, elem):
-    """(least ms, 'bytes' | 'operations') of one SSD scan: each input and
-    output once at the HBM rate, or the products these inputs need at the
-    bf16 tensor-core rate -- C B^T once per chunk (it is shared by the
-    heads), and per head the weighted product with x, the state term of
+    """(least ms, 'bytes' | 'operations', operations) of one SSD scan: each
+    input and output once at the HBM rate, or the products these inputs
+    need at the bf16 tensor-core rate -- C B^T once per chunk (it is shared
+    by the heads), and per head the weighted product with x, the state term of
     every chunk after the first (the first enters with a zero state) and
     the state update."""
     nbytes = b * s * h * p * elem * 2 + b * s * h * 4 + 2 * b * s * n * elem \
@@ -338,12 +389,14 @@ def ssd_bound(b, s, h, p, n, Q, elem):
         flops += b * h * (tri * p * 2 + q * p * n * 2
                           + (q * n * p * 2 if c0 else 0))
     t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
-    return max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations"
+    return (max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations",
+            flops)
 
 
 def flash_bound(B, S, H, KH, D, window, seq_k, elem):
-    """(least ms, by what) of causal dense attention: q, k, v and the output
-    once, or 4 * D flops for every visible (query, key) pair."""
+    """(least ms, by what, operations) of causal dense attention: q, k, v
+    and the output once, or 4 * D flops for every visible (query, key)
+    pair."""
     pairs = 0
     for i in range(S):
         lo = max(0, i - window + 1) if window else 0
@@ -351,7 +404,8 @@ def flash_bound(B, S, H, KH, D, window, seq_k, elem):
     flops = pairs * B * H * 4 * D
     nbytes = 2 * B * S * H * D * elem + 2 * B * S * KH * D * elem
     t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
-    return max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations"
+    return (max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations",
+            flops)
 
 
 def run_hybrid_kernel_checks(torch, dev):
@@ -415,11 +469,10 @@ def run_hybrid_kernel_checks(torch, dev):
     err_ssd = compare("ssd", y, yr, bf16, "main: zamba2 s=2048, bf16")
     compare("ssd (final state)", st, str_, f32, "main: zamba2 s=2048, bf16",
             SSD_STATE_TOL)
-    b_ssd, by_ssd = ssd_bound(1, 2048, 80, 64, 64, 256, 2)
+    b_ssd, by_ssd, f_ssd = ssd_bound(1, 2048, 80, 64, 64, 256, 2)
     results["ssd"] = dict(
-        max_abs_err=err_ssd, ms=K.time_ms(lambda: ssd(*sm, 256)),
-        plain_ms=K.time_ms(lambda: ssd_chunked(*sm, 256)),
-        bound_ms=b_ssd, bound_by=by_ssd, library_ms=None)
+        max_abs_err=err_ssd, bound_ms=b_ssd, bound_by=by_ssd, flops=f_ssd,
+        **K.timings(lambda: ssd(*sm, 256), lambda: ssd_chunked(*sm, 256)))
     del sm, y, yr
     torch.cuda.synchronize()
 
@@ -446,12 +499,24 @@ def run_hybrid_kernel_checks(torch, dev):
          "D=128 G=3 S=333 seq_k=300, f32"),
         (dict(B=1, S=256, H=8, KH=8, D=64, dtype=bf16), 0, None,
          "D=64 G=1 S=256, bf16"),
+        (dict(B=1, S=1024, H=32, KH=32, D=80, dtype=bf16), 300, 900,
+         "D=80 window 300, padded seq_k=900, bf16"),
+        (dict(B=1, S=300, H=16, KH=8, D=64, dtype=bf16), 100, 280,
+         "D=64 G=2 window 100 seq_k=280, bf16"),
+        (dict(B=1, S=37, H=24, KH=8, D=128, dtype=bf16), 0, None,
+         "D=128 G=3 S=37: rows end mid-tile, bf16"),
+        (dict(B=1, S=200, H=32, KH=32, D=80, dtype=bf16, causal=False), 0,
+         150, "D=80 not causal, seq_k=150, bf16"),
     ]
     for kw, window, seq_k, label in fcases:
+        kw = dict(kw)
+        causal = kw.pop("causal", True)
         q, k, v = flash_case(**kw)
-        out = flash_attention(q, k, v, window=window, seq_k=seq_k)
+        out = flash_attention(q, k, v, causal=causal, window=window,
+                              seq_k=seq_k)
         compare("flash_attention", out,
-                attention_ref(q, k, v, window=window, kv_len=seq_k),
+                attention_ref(q, k, v, causal=causal, window=window,
+                              kv_len=seq_k),
                 kw["dtype"], label)
         del q, k, v, out
     fm = flash_case(1, 2048, 32, 32, 80, bf16)
@@ -461,19 +526,15 @@ def run_hybrid_kernel_checks(torch, dev):
     compare("flash_attention", out, chunked_attention(*fm), bf16,
             "main: zamba2 S=2048 vs chunked_attention, bf16")
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in fm)
-    b_fa, by_fa = flash_bound(1, 2048, 32, 32, 80, 0, 2048, 2)
+    b_fa, by_fa, f_fa = flash_bound(1, 2048, 32, 32, 80, 0, 2048, 2)
     results["flash_attention"] = dict(
-        max_abs_err=err_fa, ms=K.time_ms(lambda: flash_attention(*fm)),
-        plain_ms=K.time_ms(lambda: chunked_attention(*fm)),
-        bound_ms=b_fa, bound_by=by_fa,
-        library_ms=K.time_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True)))
+        max_abs_err=err_fa, bound_ms=b_fa, bound_by=by_fa, flops=f_fa,
+        **K.timings(lambda: flash_attention(*fm),
+                    lambda: chunked_attention(*fm),
+                    lambda: F.scaled_dot_product_attention(
+                        qt, kt, vt, is_causal=True)))
     torch.cuda.synchronize()
-    for name, r in results.items():
-        lib = "--" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
-        print(f"  time {name:24s} kernel {r['ms']:.4f} ms  plain "
-              f"{r['plain_ms']:.4f} ms  library {lib}  "
-              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+    print_times(results)
     return results
 
 
@@ -522,11 +583,28 @@ def drive(torch, engine, reqs):
     return outs, t_prefill, t_decode, n_decode
 
 
+# device kernel name -> the port kernel (wrapper) it belongs to
+PORT_KERNELS = (("paged_decode_kernel", "paged decode attention"),
+                ("paged_prefill_kernel", "paged_flash_prefill"),
+                ("paged_prefill_tc_kernel", "paged_flash_prefill"),
+                ("flash_kernel", "flash_attention"),
+                ("flash_tc_kernel", "flash_attention"),
+                ("ssd_kernel", "ssd"))
+
+
+def port_kernel(name: str):
+    """The port kernel a device activity belongs to, or None."""
+    n = name.lower()
+    for key, kernel in PORT_KERNELS:
+        if key in n:
+            return kernel
+    return None
+
+
 def kernel_group(name: str) -> str:
     """Coarse class of a device activity, by its name."""
     n = name.lower()
-    if any(k in n for k in ("paged_decode_kernel", "paged_prefill_kernel",
-                            "flash_kernel", "ssd_kernel")):
+    if port_kernel(n):
         return "port kernels"
     if "memcpy" in n or "memset" in n:
         return "copies"
@@ -535,13 +613,40 @@ def kernel_group(name: str) -> str:
     return "other (elementwise, reductions, sort, indexing)"
 
 
+def device_time(prof):
+    """Device time (us) of a torch.profiler trace by kernel group, by
+    kernel name and by port kernel, and the number of device activities."""
+    from torch.autograd import DeviceType
+    by_group, by_name, by_port, n = {}, {}, {}, 0
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        n += 1
+        us = e.time_range.elapsed_us()
+        by_name[e.name] = by_name.get(e.name, 0.0) + us
+        g = kernel_group(e.name)
+        by_group[g] = by_group.get(g, 0.0) + us
+        k = port_kernel(e.name)
+        if k:
+            by_port[k] = by_port.get(k, 0.0) + us
+    return by_group, by_name, by_port, n
+
+
+def print_breakdown(by_group, by_name, by_port, per, unit):
+    for g, us in sorted(by_group.items(), key=lambda kv: -kv[1]):
+        print(f"    {g:48s} {us / 1e3 / per:8.3f} ms {unit}")
+    for k, us in sorted(by_port.items(), key=lambda kv: -kv[1]):
+        print(f"      of which {k:39s} {us / 1e3 / per:8.3f} ms {unit}")
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
+        print(f"    top: {us / 1e3 / per:8.3f} ms  {name[:90]}")
+
+
 def profile_decode(torch, engine, reqs, steps=2):
     """A decode-only window with every request running: ``steps`` engine
     steps (each one fused call of K decode steps) timed on the host clock,
     then as many traced with torch.profiler for device time by kernel. The
     device's idle share is 1 - device busy time / the UNtraced window's
     wall time, which keeps the tracer's own host overhead out."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     for r in reqs:
         engine.add_request(r)
@@ -569,14 +674,7 @@ def profile_decode(torch, engine, reqs, steps=2):
     check(n_tok == n_tok2 == steps * K * len(reqs),
           f"profile: {n_tok}/{n_tok2} tokens, expected {steps * K * len(reqs)}")
     n_steps = steps * K
-    by_group, by_name = {}, {}
-    for e in prof.events():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        us = e.time_range.elapsed_us()
-        by_name[e.name] = by_name.get(e.name, 0.0) + us
-        g = kernel_group(e.name)
-        by_group[g] = by_group.get(g, 0.0) + us
+    by_group, by_name, by_port, _ = device_time(prof)
     busy_ms = sum(by_group.values()) / 1e3 / n_steps
     wall_ms = wall * 1e3 / n_steps
     print(f"  decode window: {len(reqs)} sequences, {n_steps} decode steps "
@@ -590,15 +688,77 @@ def profile_decode(torch, engine, reqs, steps=2):
                 "decode_step_device_ms": None, "device_idle_share": None}
     idle = 1.0 - busy_ms / wall_ms
     print(f"  device busy {busy_ms:.3f} ms a step: idle share {idle:.3f}")
-    for g, us in sorted(by_group.items(), key=lambda kv: -kv[1]):
-        print(f"    {g:48s} {us / 1e3 / n_steps:8.3f} ms a step")
-    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
-        print(f"    top: {us / 1e3 / n_steps:8.3f} ms  {name[:90]}")
+    print_breakdown(by_group, by_name, by_port, n_steps, "a step")
     return {"decode_window_tok_s": n_tok / wall,
             "decode_step_wall_ms": wall_ms, "decode_step_device_ms": busy_ms,
             "device_idle_share": idle,
             "device_ms_by_group": {g: us / 1e3 / n_steps
-                                   for g, us in by_group.items()}}
+                                   for g, us in by_group.items()},
+            "device_ms_by_port_kernel": {k: us / 1e3 / n_steps
+                                         for k, us in by_port.items()}}
+
+
+def profile_prefill(torch, engine, reqs, step, what):
+    """One prefill step alone on the device: ``reqs`` are three requests of
+    one shape (other tokens, one new token each, so no decode runs). The
+    first runs to its end untimed, so the engine's first-use costs stay
+    out; the second is stepped to its ``step``-th engine step, which is
+    timed on the host clock; the third to the same step, which is traced
+    with torch.profiler. The device's idle share is 1 - device busy time /
+    the untraced step's wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def run(req, traced):
+        engine.add_request(req)
+        for _ in range(step - 1):
+            engine.step()
+        check(engine.has_work(), f"prefill profile: {req.request_id} "
+              f"finished before step {step}")
+        p0 = engine.stats["prefill_tokens"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if traced:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                engine.step()
+                torch.cuda.synchronize()
+        else:
+            prof = None
+            engine.step()
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        check(not engine.has_work(), f"prefill profile: {req.request_id} "
+              f"not finished at step {step}")
+        return wall, engine.stats["prefill_tokens"] - p0, prof
+
+    engine.add_request(reqs[0])
+    while engine.has_work():
+        engine.step()
+    wall, n_tok, _ = run(reqs[1], False)
+    _, n_tok2, prof = run(reqs[2], True)
+    check(n_tok == n_tok2 > 0, f"prefill profile: {n_tok}/{n_tok2} tokens")
+    by_group, by_name, by_port, n_act = device_time(prof)
+    wall_ms = wall * 1e3
+    print(f"  prefill window ({what}): {n_tok} tokens in {wall_ms:.3f} ms "
+          f"on the host clock")
+    if not by_group:
+        print("  device time by kernel: not measured (the profiler saw no "
+              "device activity)")
+        return {"prefill_step_wall_ms": wall_ms,
+                "prefill_step_device_ms": None,
+                "prefill_device_idle_share": None}
+    busy_ms = sum(by_group.values()) / 1e3
+    idle = 1.0 - busy_ms / wall_ms
+    print(f"  device busy {busy_ms:.3f} ms in {n_act} device activities: "
+          f"idle share {idle:.3f}")
+    print_breakdown(by_group, by_name, by_port, 1, "")
+    return {"prefill_step_wall_ms": wall_ms, "prefill_step_device_ms": busy_ms,
+            "prefill_device_idle_share": idle,
+            "prefill_device_activities": n_act,
+            "prefill_device_ms_by_group": {g: us / 1e3
+                                           for g, us in by_group.items()},
+            "prefill_device_ms_by_port_kernel": {
+                k: us / 1e3 for k, us in by_port.items()}}
 
 
 def run_engine(torch, dev):
@@ -684,6 +844,14 @@ def run_engine(torch, dev):
         torch, ContinuousBatchingEngine(model, params, EngineConfig(**ecfg),
                                         device=dev),
         make_requests(8, 1024, tails, 64, V, seed=3)))
+    torch.cuda.empty_cache()
+    # -- prefill window: the third 512-token chunk of a 1536-token prompt,
+    # at q_start 1024 (phase 2's main prefill shape) --
+    metrics.update(profile_prefill(
+        torch, ContinuousBatchingEngine(model, params, EngineConfig(**ecfg),
+                                        device=dev),
+        make_requests(3, 0, [1536] * 3, 1, V, seed=5), step=3,
+        what="512-token chunk at 1024"))
     torch.cuda.empty_cache()
 
     # -- per-step path: fused_decode=False (paged_attention kernel) --
@@ -836,6 +1004,12 @@ def run_hybrid_engine(torch, dev):
                                         device=dev),
         requests(lens, 64, 3)))
     torch.cuda.empty_cache()
+    # -- prefill window: one 2048-token prompt, one-shot --
+    metrics.update(profile_prefill(
+        torch, ContinuousBatchingEngine(model, params, EngineConfig(**ecfg),
+                                        device=dev),
+        requests([2048] * 3, 1, 5), step=1, what="2048-token prompt"))
+    torch.cuda.empty_cache()
 
     # -- per-step path: fused_decode=False --
     eng2 = ContinuousBatchingEngine(
@@ -931,7 +1105,8 @@ def main() -> int:
     print(f"  kernel build: {build_s:.1f} s for {list(_build.SOURCES)}")
     for name, log in _build.BUILD_LOG.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if any(k in line for k in ("registers", "spill", "properties for",
+                                       "Performance Loss", "warning")):
                 print(f"    {name}: {line.strip()}")
 
     timing = run_kernel_checks(torch, dev)
@@ -967,7 +1142,9 @@ def main() -> int:
             "launches": launches[name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "device_ms": r["device_ms"],
+            "library_device_ms": r["library_device_ms"]})
     print(json.dumps({"metrics": metrics, "hybrid_metrics": hybrid_metrics,
                       "build_s": build_s}))
     print(json.dumps({"kernels": kernels}))

@@ -10,29 +10,37 @@
 // the pages. Query rows fold (token, head of the group) as r = c*G + g, so
 // one tile serves all G heads of a token; row r sits at absolute position
 // q_starts[b] + r / G. Keys are masked by kpos < kv_lens[b] and
-// kpos <= qpos (NEG_INF = -1e30); scores in fp32 with q pre-scaled by
-// 1/sqrt(D); output acc / max(l, 1e-30) in the input dtype, written in q's
-// (B, C, H, D) layout (no fold copies on either side).
+// kpos <= qpos; scores in fp32 scaled by 1/sqrt(D); output
+// acc / max(l, 1e-30) in the input dtype, written in q's (B, C, H, D)
+// layout (no fold copies on either side).
 //
 // What bounds it on the H100. At the serving shape (llama3.2-3b: KH = 8,
 // G = 3, D = 128; a 512-token chunk at q_start 1024) the causal pairs need
 // 4 * D flops each, about 8 GFLOP per layer, against about 13 MB of q,
 // K/V and output: over 600 flops per byte, above the ~295 flop/byte
 // ridge, so the least time is the flops over the tensor cores' 989
-// TFLOP/s. This first version does its products with
-// fp32 FMA on the CUDA cores (67 TFLOP/s peak at best), so it cannot come
-// near that bound; mma.sync / wgmma with TMA-fed tiles are later PRs' work.
+// TFLOP/s.
 //
-// Design. One block per (b, kv head, tile of QT = 64 folded query rows);
-// the sequential page axis of the Pallas grid becomes a loop over KT = 32
-// key positions at a time, up to min(kv_len, last query position of the
-// tile) + 1, so pages past the tile's causal edge are skipped. Each key's
-// page comes from the block's own row of the block table. Q (fp32, scaled),
-// the K tile and the V tile live in shared memory (rows padded by one float
-// against bank conflicts); each thread owns 4 query rows x 4 key columns of
-// the score tile and 4 rows x D/8 columns of the output, with the row max
-// and row sum reduced over the 8 lanes that share a row. Padded rows
-// (r >= R) are masked and never stored.
+// Design. bfloat16, the engine's dtype, runs the tensor-core core of
+// attention_tc.cuh (wgmma m64nNk16 for both products, K/V tiles of 64 keys
+// in a two-stage ring): one block per (b, kv head, tile of 64 folded query
+// rows), heaviest (last) row tiles launched first. A key row's page comes
+// from the block's own row of the block table (attn_tc::PagedLoader,
+// 16-byte cp.async copies), one lookup per key row, so any page size that
+// is a multiple of 16 works and a 64-key tile may span several pages or
+// part of one; a TMA box per page would need a tensor map per page size and
+// could not zero the rows past kv_len. Key tiles past the tile's causal
+// edge are never loaded.
+//
+// float32 keeps the first version's design, fp32 FMA on the CUDA cores
+// (tensor cores would mean TF32, which misses the f32 checks): one block
+// per (b, kv head, 64 folded rows), a loop over KT = 32 key positions up to
+// min(kv_len, last query position of the tile) + 1; Q (scaled), the K tile
+// and the V tile in shared memory (rows padded by one float against bank
+// conflicts); each thread owns 4 query rows x 4 key columns of the score
+// tile and 4 rows x D/8 columns of the output, the row max and sum reduced
+// over the 8 lanes that share a row. Padded rows (r >= R) are masked and
+// never stored.
 //
 // Launches on the caller's stream, allocates nothing, does not synchronise.
 // The entry returns cudaGetLastError() after the launch.
@@ -41,6 +49,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "attention_tc.cuh"
+
 namespace {
 
 constexpr float kNegInf = -1e30f;
@@ -48,30 +58,21 @@ constexpr int kQT = 64;        // folded query rows per block
 constexpr int kKT = 32;        // key positions per tile
 constexpr int kThreads = 128;  // 16 row groups x 8 column lanes
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
-}
-
 template <int D>
 constexpr size_t smem_bytes() {
   return sizeof(float) * ((size_t)kQT * (D + 1) + (size_t)kKT * (D + 1) +
                           (size_t)kKT * D + (size_t)kQT * (kKT + 1));
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads) paged_prefill_kernel(
-    const T* __restrict__ q,            // (B, C, KH*G, D)
-    const T* __restrict__ k_pages,      // (NP, page, KH, D)
-    const T* __restrict__ v_pages,
+    const float* __restrict__ q,        // (B, C, KH*G, D)
+    const float* __restrict__ k_pages,  // (NP, page, KH, D)
+    const float* __restrict__ v_pages,
     const int* __restrict__ tables,     // (B, pps)
     const int* __restrict__ kv_lens,    // (B,)
     const int* __restrict__ q_starts,   // (B,)
-    T* __restrict__ out,                // (B, C, KH*G, D)
+    float* __restrict__ out,            // (B, C, KH*G, D)
     int C, int KH, int G, int page_size, int pps, float scale) {
   constexpr int DP = D + 1;
   constexpr int PP = kKT + 1;
@@ -94,8 +95,7 @@ __global__ void __launch_bounds__(kThreads) paged_prefill_kernel(
     float v = 0.f;
     if (row < R) {
       const int c = row / G, g = row % G;
-      v = to_f(q[(((size_t)b * C + c) * H + (size_t)kh * G + g) * D + d]) *
-          scale;
+      v = q[(((size_t)b * C + c) * H + (size_t)kh * G + g) * D + d] * scale;
     }
     Qs[r * DP + d] = v;
   }
@@ -126,8 +126,8 @@ __global__ void __launch_bounds__(kThreads) paged_prefill_kernel(
         const int page = tab[p / page_size];
         const size_t off =
             (((size_t)page * page_size + p % page_size) * KH + kh) * D + d;
-        kv = to_f(k_pages[off]);
-        vv = to_f(v_pages[off]);
+        kv = k_pages[off];
+        vv = v_pages[off];
       }
       Ks[j * DP + d] = kv;
       Vs[j * D + d] = vv;
@@ -203,48 +203,79 @@ __global__ void __launch_bounds__(kThreads) paged_prefill_kernel(
     const int row = row0 + tr + 16 * i;
     if (row >= R) continue;
     const int c0 = row / G, g = row % G;
-    T* op = out + (((size_t)b * C + c0) * H + (size_t)kh * G + g) * D;
+    float* op = out + (((size_t)b * C + c0) * H + (size_t)kh * G + g) * D;
     const float denom = fmaxf(l[i], 1e-30f);
 #pragma unroll
-    for (int c = 0; c < OC; ++c) store(op + tc + 8 * c, o[i][c] / denom);
+    for (int c = 0; c < OC; ++c) op[tc + 8 * c] = o[i][c] / denom;
   }
 }
 
-template <typename T, int D>
-int launch(const void* q, const void* kp, const void* vp, const int* tables,
-           const int* kv_lens, const int* q_starts, void* out, int B, int C,
-           int KH, int G, int page_size, int pps, cudaStream_t stream) {
+template <int D>
+__global__ void __launch_bounds__(attn_tc::kThreads) paged_prefill_tc_kernel(
+    const __nv_bfloat16* __restrict__ q,        // (B, C, KH*G, D)
+    const __nv_bfloat16* __restrict__ k_pages,  // (NP, page, KH, D)
+    const __nv_bfloat16* __restrict__ v_pages,
+    const int* __restrict__ tables,             // (B, pps)
+    const int* __restrict__ kv_lens,            // (B,)
+    const int* __restrict__ q_starts,           // (B,)
+    __nv_bfloat16* __restrict__ out,            // (B, C, KH*G, D)
+    int C, int KH, int G, int page_size, int pps, float scale_log2) {
+  const int b = blockIdx.x, kh = blockIdx.y;
+  const int row0 = (gridDim.z - 1 - blockIdx.z) * attn_tc::kRows;
+  const attn_tc::PagedLoader loader{k_pages + (size_t)kh * D,
+                                   v_pages + (size_t)kh * D,
+                                   tables + (size_t)b * pps, page_size,
+                                   KH * D};
+  attn_tc::attend<D>(q, out, loader, b, kh, C, KH, G, row0, q_starts[b],
+                     min(kv_lens[b], pps * page_size), /*causal=*/1,
+                     /*window=*/0, scale_log2);
+}
+
+// first launch of each instantiation raises its dynamic shared memory limit
+template <typename F>
+int allow_smem(F* kernel, size_t bytes, bool& done) {
+  if (done) return 0;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (e != cudaSuccess) return (int)e;
+  done = true;
+  return 0;
+}
+
+template <int D>
+int launch_f32(const void* q, const void* kp, const void* vp,
+               const int* tables, const int* kv_lens, const int* q_starts,
+               void* out, int B, int C, int KH, int G, int page_size, int pps,
+               cudaStream_t stream) {
   constexpr size_t bytes = smem_bytes<D>();
-  static bool attr_set = false;   // per instantiation, first launch only
-  if (!attr_set) {
-    cudaError_t e = cudaFuncSetAttribute(
-        paged_prefill_kernel<T, D>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-    if (e != cudaSuccess) return (int)e;
-    attr_set = true;
-  }
-  const int R = C * G;
-  dim3 grid(B, KH, (R + kQT - 1) / kQT);
-  const float scale = 1.0f / sqrtf((float)D);
-  paged_prefill_kernel<T, D><<<grid, kThreads, bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(kp),
-      static_cast<const T*>(vp), tables, kv_lens, q_starts,
-      static_cast<T*>(out), C, KH, G, page_size, pps, scale);
+  static bool attr_set = false;
+  if (int e = allow_smem(paged_prefill_kernel<D>, bytes, attr_set)) return e;
+  dim3 grid(B, KH, (C * G + kQT - 1) / kQT);
+  paged_prefill_kernel<D><<<grid, kThreads, bytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(kp),
+      static_cast<const float*>(vp), tables, kv_lens, q_starts,
+      static_cast<float*>(out), C, KH, G, page_size, pps,
+      1.0f / sqrtf((float)D));
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int dispatch(int D, const void* q, const void* kp, const void* vp,
-             const int* tables, const int* kv_lens, const int* q_starts,
-             void* out, int B, int C, int KH, int G, int page_size, int pps,
-             cudaStream_t s) {
-  if (D == 128)
-    return launch<T, 128>(q, kp, vp, tables, kv_lens, q_starts, out, B, C, KH,
-                          G, page_size, pps, s);
-  if (D == 64)
-    return launch<T, 64>(q, kp, vp, tables, kv_lens, q_starts, out, B, C, KH,
-                         G, page_size, pps, s);
-  return (int)cudaErrorInvalidValue;
+template <int D>
+int launch_bf16(const void* q, const void* kp, const void* vp,
+                const int* tables, const int* kv_lens, const int* q_starts,
+                void* out, int B, int C, int KH, int G, int page_size,
+                int pps, cudaStream_t stream) {
+  constexpr size_t bytes = attn_tc::smem_bytes<D>();
+  static bool attr_set = false;
+  if (int e = allow_smem(paged_prefill_tc_kernel<D>, bytes, attr_set))
+    return e;
+  dim3 grid(B, KH, (C * G + attn_tc::kRows - 1) / attn_tc::kRows);
+  paged_prefill_tc_kernel<D><<<grid, attn_tc::kThreads, bytes, stream>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(kp),
+      static_cast<const __nv_bfloat16*>(vp), tables, kv_lens, q_starts,
+      static_cast<__nv_bfloat16*>(out), C, KH, G, page_size, pps,
+      1.4426950408889634f / sqrtf((float)D));
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -260,13 +291,14 @@ extern "C" int paged_flash_prefill_fwd(
   if (B <= 0 || C <= 0 || KH <= 0 || G <= 0 || pps <= 0 || page_size <= 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return dispatch<float>(D, q, k_pages, v_pages, tables, kv_lens, q_starts,
-                           out, B, C, KH, G, page_size, pps, s);
-  if (dtype == 1)
-    return dispatch<__nv_bfloat16>(D, q, k_pages, v_pages, tables, kv_lens,
-                                   q_starts, out, B, C, KH, G, page_size, pps,
-                                   s);
+#define PAGED_PREFILL_ARGS                                                   \
+  q, k_pages, v_pages, tables, kv_lens, q_starts, out, B, C, KH, G,         \
+      page_size, pps, s
+  if (dtype == 0 && D == 64) return launch_f32<64>(PAGED_PREFILL_ARGS);
+  if (dtype == 0 && D == 128) return launch_f32<128>(PAGED_PREFILL_ARGS);
+  if (dtype == 1 && D == 64) return launch_bf16<64>(PAGED_PREFILL_ARGS);
+  if (dtype == 1 && D == 128) return launch_bf16<128>(PAGED_PREFILL_ARGS);
+#undef PAGED_PREFILL_ARGS
   return (int)cudaErrorInvalidValue;
 }
 

@@ -3,9 +3,10 @@
 Each ``src/repro_torch/csrc/<name>.cu`` has a plain C interface. On first
 use it is compiled with ``nvcc`` for ``sm_90a`` into a shared library under
 ``build/repro_torch_kernels/`` in the checkout (listed in ``.gitignore``),
-named by a hash of its source and flags so an edited source rebuilds, and
-loaded with ``ctypes``. Nothing here runs at import time, and nothing here
-is reached for CPU tensors: the CPU tests never need ``nvcc``.
+named by a hash of its source, the shared headers (``csrc/*.cuh``) and the
+flags, so an edited source or header rebuilds, and loaded with ``ctypes``.
+Nothing here runs at import time, and nothing here is reached for CPU
+tensors: the CPU tests never need ``nvcc``.
 
 Every C entry returns ``cudaGetLastError()`` after its launch;
 :func:`check` raises on anything but 0. ``LAUNCHES`` counts launches per
@@ -51,9 +52,11 @@ def _nvcc() -> str:
 
 def _paths(name: str) -> tuple[Path, Path]:
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return src, BUILD_DIR / f"lib{name}-{digest}.so"
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return src, BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names=SOURCES) -> None:

@@ -25,6 +25,21 @@ from repro_torch.models.layers import chunked_attention
 FLASH_HEAD_DIMS = (64, 80, 128)
 
 
+def _check_layout(q, tensors, k, v):
+    """The CUDA kernels take contiguous tensors on q's device, with k and v
+    starting on a 16-byte boundary (their rows arrive by 16-byte cp.async
+    copies or TMA boxes)."""
+    for t in tensors:
+        if t.device != q.device:
+            raise ValueError(f"all inputs must be on {q.device}, "
+                             f"got {t.device}")
+        if not t.is_contiguous():
+            raise ValueError("the CUDA kernel takes contiguous tensors only")
+    if k.data_ptr() % 16 or v.data_ptr() % 16:
+        raise ValueError("the CUDA kernel takes k and v whose data start on "
+                         "a 16-byte boundary only")
+
+
 def flash_attention(q, k, v, *, causal=True, window=0, seq_k=None):
     """Dense flash attention. q: (B, Sq, H, D); k, v: (B, Sk, KH, D) with
     H % KH == 0. Positions are start-aligned, as in the JAX kernel: query
@@ -41,12 +56,7 @@ def flash_attention(q, k, v, *, causal=True, window=0, seq_k=None):
     if q.device.type == "cpu":
         return chunked_attention(q, k, v, causal=causal, window=window,
                                  kv_len=seq_k)
-    for t in (q, k, v):
-        if t.device != q.device:
-            raise ValueError(f"all inputs must be on {q.device}, "
-                             f"got {t.device}")
-        if not t.is_contiguous():
-            raise ValueError("the CUDA kernel takes contiguous tensors only")
+    _check_layout(q, (q, k, v), k, v)
     if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype \
             or v.dtype != q.dtype:
         raise TypeError(f"q, k and v must share float32 or bfloat16, got "
@@ -88,12 +98,8 @@ def paged_flash_prefill(q, k_pages, v_pages, block_tables, q_offset: int,
     if q.device.type == "cpu":
         return paged_prefill_attention_ref(q, k_pages, v_pages, block_tables,
                                            q_offset, kv_len)
-    for t in (q, k_pages, v_pages, block_tables):
-        if t.device != q.device:
-            raise ValueError(f"all inputs must be on {q.device}, "
-                             f"got {t.device}")
-        if not t.is_contiguous():
-            raise ValueError("the CUDA kernel takes contiguous tensors only")
+    _check_layout(q, (q, k_pages, v_pages, block_tables), k_pages,
+                  v_pages)
     if q.dtype not in _DTYPE_CODE or k_pages.dtype != q.dtype \
             or v_pages.dtype != q.dtype:
         raise TypeError(f"q and pages must share float32 or bfloat16, got "

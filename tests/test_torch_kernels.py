@@ -14,6 +14,8 @@ orders); bfloat16 2e-2 (the inputs are the same bf16 values on both
 sides, and the outputs are rounded to bf16, whose spacing is 2^-8
 relative, after float32 sums taken in different orders).
 """
+import shutil
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -191,6 +193,9 @@ PREFILL_CASES = {
     "mqa-single-page": (1, 5, 4, 1, 32, 16, 1, 0),
     "straddles-page": (1, 16, 4, 2, 32, 16, 4, 15),
     "gqa-d128": (1, 24, 6, 2, 128, 16, 4, 20),
+    # folded rows that end mid-tile, at a start that is no tile multiple
+    "ragged-G3": (1, 37, 6, 2, 64, 16, 8, 77),
+    "ragged-G7": (1, 9, 56, 8, 32, 16, 4, 50),
 }
 
 
@@ -210,3 +215,29 @@ def test_paged_flash_prefill_matches_pallas(case, dt):
     ref = jax_paged_flash_prefill(qj, kj, vj, tj, start, kv_len,
                                   interpret=True)
     _close(out, ref, dt)
+
+
+# ---------------------------------------------------------------------------
+# the kernels' build cache
+# ---------------------------------------------------------------------------
+
+def test_build_path_hashes_shared_headers(tmp_path, monkeypatch):
+    """A library is named by the hash of its source, the shared headers and
+    the flags: editing a ``csrc/*.cuh`` header renames the library of every
+    source, so a stale build is never loaded (no nvcc needed to see it)."""
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    before = {n: _build._paths(n)[1] for n in _build.SOURCES}
+    assert before == {n: _build._paths(n)[1] for n in _build.SOURCES}
+    header = csrc / "attention_tc.cuh"
+    assert header.is_file()
+    header.write_text(header.read_text() + "\n// edited\n")
+    after = {n: _build._paths(n)[1] for n in _build.SOURCES}
+    for n in _build.SOURCES:
+        assert after[n] != before[n], n
+        assert after[n].parent == _build.BUILD_DIR
+    src = csrc / "ssd.cu"
+    src.write_text(src.read_text() + "\n")
+    assert _build._paths("ssd")[1] != after["ssd"]
+    assert _build._paths("paged_prefill")[1] == after["paged_prefill"]
