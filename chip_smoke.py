@@ -13,7 +13,10 @@ package. Phases, each of which raises on a failed check (exit code 1):
 2. Kernel checks: every kernel on the engines' paths against its plain
    PyTorch version on the card, at the main-path shapes of full-width
    llama3.2-3b (paged attention kernels) and zamba2-2.7b / mamba2-130m
-   (the SSD scan, dense flash attention) and at edge geometries; then its
+   (the SSD scan, dense flash attention) and at edge geometries -- for
+   the split-K paged decode kernels also at the edges of its splits, its
+   launch geometry printed, its device time at two other split sizes and
+   the device time of one PyTorch sum over the same K/V bytes; then its
    time (median of CUDA-event timed runs, L2 flushed before each) beside
    the plain version's, a library yardstick's where one PyTorch call
    computes the same function (``scaled_dot_product_attention``, which the
@@ -186,6 +189,7 @@ def run_kernel_checks(torch, dev):
     from repro_torch.kernels.flash_attention.ops import paged_flash_prefill
     from repro_torch.kernels.flash_attention.ref import (
         paged_prefill_attention_ref)
+    from repro_torch.kernels.paged_attention import ops as pa_ops
     from repro_torch.kernels.paged_attention.ops import (
         fused_decode_attention, paged_attention)
     from repro_torch.kernels.paged_attention.ref import (
@@ -222,6 +226,41 @@ def run_kernel_checks(torch, dev):
              label="main shape, f32"),
         dict(B=2, H=56, KH=8, D=128, page=16, PPS=4, Kt=3, lens=[0, 48],
              tails=[0, 2], dtype=f32, label="G=7, empty row, f32"),
+    ]
+    # the split-K edges, for splits of `split` positions: a context on a
+    # boundary and one position either side (S with a tail: a split of
+    # tail rows only), a full table, one long sequence, tails across a
+    # boundary, pages smaller and larger than a tile, G = 7 and G = 1 and
+    # two head groups (G = 16) over several splits, D = 64 in f32
+    split = pa_ops.SPLIT_POSITIONS
+    edges += [
+        dict(B=3, H=24, KH=8, D=128, page=64, PPS=8, Kt=8,
+             lens=[split - 1, split, split + 1], tails=[0, 5, 8], dtype=bf16,
+             label=f"ctx S-1, S, S+1 (S={split})"),
+        dict(B=2, H=24, KH=8, D=128, page=64, PPS=64, Kt=8,
+             lens=[4096, 4096], tails=[8, 1], dtype=bf16,
+             label="full table: ctx 4096"),
+        dict(B=1, H=24, KH=8, D=128, page=64, PPS=64, Kt=8, lens=[4000],
+             tails=[6], dtype=bf16, label="B=1, ctx 4000"),
+        dict(B=2, H=24, KH=8, D=128, page=64, PPS=8, Kt=8,
+             lens=[split - 3, 2 * split - 1], tails=[7, 2], dtype=bf16,
+             label="tails straddle a split boundary"),
+        dict(B=2, H=24, KH=8, D=128, page=16, PPS=64, Kt=4,
+             lens=[1000, 513], tails=[4, 1], dtype=bf16, label="page 16"),
+        dict(B=2, H=24, KH=8, D=128, page=128, PPS=16, Kt=4,
+             lens=[2047, 300], tails=[3, 4], dtype=bf16, label="page 128"),
+        dict(B=2, H=56, KH=8, D=128, page=16, PPS=64, Kt=3,
+             lens=[1023, 600], tails=[3, 0], dtype=bf16,
+             label="G=7 over several splits"),
+        dict(B=2, H=8, KH=8, D=64, page=32, PPS=32, Kt=2,
+             lens=[1000, 257], tails=[2, 1], dtype=bf16,
+             label="G=1 D=64 over several splits"),
+        dict(B=2, H=16, KH=1, D=128, page=16, PPS=32, Kt=2,
+             lens=[500, 17], tails=[2, 2], dtype=bf16,
+             label="G=16: two head groups"),
+        dict(B=2, H=16, KH=4, D=64, page=16, PPS=40, Kt=4,
+             lens=[640, 255], tails=[4, 2], dtype=f32,
+             label="D=64 G=4 over several splits, f32"),
     ]
     c = decode_case(K, dtype=bf16, **main)
     args = (c["q"], c["kp"], c["vp"], c["tables"], c["cl"])
@@ -285,6 +324,48 @@ def run_kernel_checks(torch, dev):
                     lambda: fused_decode_attention_ref(*targs),
                     lambda: F.scaled_dot_product_attention(
                         qs, kgt, vgt, attn_mask=mask_tail, enable_gqa=True)))
+    # the split size: device time at two other sizes, each checked first
+    alt = {}
+    for sp in (128, 512):
+        pa_ops.SPLIT_POSITIONS = sp
+        compare("paged_attention", paged_attention(*args),
+                paged_attention_ref(*args), bf16, f"main shape, S={sp}")
+        compare("fused_decode_attention", fused_decode_attention(*targs),
+                fused_decode_attention_ref(*targs), bf16,
+                f"main shape, S={sp}")
+        alt[sp] = dict(
+            paged_attention=K.time_ms(lambda: paged_attention(*args),
+                                      device=True),
+            fused_decode_attention=K.time_ms(
+                lambda: fused_decode_attention(*targs), device=True))
+    pa_ops.SPLIT_POSITIONS = split
+    # after some thousand calls the outputs still agree and every counter
+    # is back at 0
+    compare("fused_decode_attention", fused_decode_attention(*targs),
+            fused_decode_attention_ref(*targs), bf16,
+            "main shape, after the timed calls")
+    torch.cuda.synchronize()
+    check(not any(cnt.any().item() for _, cnt in pa_ops._WORKSPACE.values()),
+          "paged decode: a split counter was left non-zero")
+    geometry = decode_geometry(main, c["cl"], c["tl"], split)
+    # what one kernel that only reads the main shape's K and V takes,
+    # timed the same way: a PyTorch sum over as many bf16 bytes
+    kv_bytes = ctx * KH * D * 2 * 2
+    xs = torch.empty(kv_bytes // 2, dtype=bf16, device=dev).normal_(
+        generator=K.gen)
+    geometry["read_floor_device_ms"] = K.time_ms(lambda: xs.sum(),
+                                                 device=True)
+    print(f"  read floor: torch sum over the main shape's {kv_bytes} B of "
+          f"K and V: {geometry['read_floor_device_ms']:.4f} ms (device time)")
+    del xs
+    for name in ("paged_attention", "fused_decode_attention"):
+        for sp, t in alt.items():
+            print(f"  time {name:24s} (device time) at S={sp}: "
+                  f"{t[name]:.4f} ms")
+        results[name]["device_ms_by_split"] = {
+            split: results[name]["device_ms"],
+            **{sp: t[name] for sp, t in alt.items()}}
+    results["paged_attention"]["geometry"] = geometry
     del kg, vg, kgt, vgt
 
     # -- prefill: 512-token chunks at q_start 0, 1000 (straddles pages) and
@@ -349,6 +430,42 @@ def run_kernel_checks(torch, dev):
     torch.cuda.synchronize()
     print_times(results)
     return results
+
+
+def decode_geometry(main, ctx_lens, tail_lens, split):
+    """Print and return the paged decode kernels' launch at the main
+    shape: split size, blocks, blocks that hold work, ring stages, dynamic
+    shared memory and workspace bytes."""
+    import ctypes
+    from repro_torch.kernels import _build
+    B, H, KH, D = main["B"], main["H"], main["KH"], main["D"]
+    G = H // KH
+    heads, stages = ctypes.c_int(), ctypes.c_int()
+    fn = _build.library("paged_attention").paged_attention_geometry
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)] * 2
+    smem = fn(G, D, 1, ctypes.byref(heads), ctypes.byref(stages))
+    groups = -(-G // heads.value)
+    out = {"split": split, "stages": stages.value,
+           "dynamic_smem_bytes": smem, "heads_per_block": heads.value}
+    ctx = [int(n) for n in ctx_lens.tolist()]
+    tails = [int(n) for n in tail_lens.tolist()]
+    for name, n_pos, tl in (
+            ("paged_attention", main["PPS"] * main["page"], [0] * B),
+            ("fused_decode_attention", main["PPS"] * main["page"] + main["Kt"],
+             tails)):
+        nsplit = -(-n_pos // split)
+        active = sum(max(1, -(-(c + t) // split)) for c, t in zip(ctx, tl))
+        out[name] = {"blocks": nsplit * KH * groups * B,
+                     "active_blocks": active * KH * groups,
+                     "workspace_bytes": B * H * nsplit * (D + 2) * 4
+                     + B * H * 4}
+        print(f"  geometry {name:24s} S={split}: {out[name]['blocks']} blocks"
+              f" ({KH * groups} x {B} x {nsplit} splits), "
+              f"{out[name]['active_blocks']} with work; {stages.value} "
+              f"stages, {smem} B dynamic shared memory, "
+              f"{heads.value} heads a block; workspace "
+              f"{out[name]['workspace_bytes']} B")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1145,8 +1262,12 @@ def main() -> int:
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "device_ms": r["device_ms"],
             "library_device_ms": r["library_device_ms"]})
+    decode = {"geometry": timing["paged_attention"]["geometry"],
+              "device_ms_by_split": {
+                  n: timing[n]["device_ms_by_split"]
+                  for n in ("paged_attention", "fused_decode_attention")}}
     print(json.dumps({"metrics": metrics, "hybrid_metrics": hybrid_metrics,
-                      "build_s": build_s}))
+                      "decode_kernel": decode, "build_s": build_s}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -10,6 +10,13 @@ plain PyTorch version in ``ref.py``; CUDA tensors launch the hand-written
 kernel or raise -- there is no fallback from a kernel to its plain
 version. The wrapper checks device, dtype, shape and contiguity, allocates
 the output, and launches on the current stream without synchronising.
+
+The kernel splits each sequence's positions into blocks of
+``SPLIT_POSITIONS`` and combines the splits' partial softmax states in a
+float32 workspace, with one counter per (sequence, kv head, head group).
+Workspace and counters are made once per (device, stream) and grown when a
+call needs more (the counters are zeroed only then: every call leaves them
+zero), so a call allocates nothing but its output.
 """
 from __future__ import annotations
 
@@ -21,6 +28,35 @@ from repro_torch.kernels.paged_attention.ref import (
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (64, 128)
+# positions per split: a multiple of the kernel's 64-position tile, at most
+# 1024 (chosen on the card, PERF.md)
+SPLIT_POSITIONS = 256
+# (device index, stream) -> (float32 workspace, int32 counters)
+_WORKSPACE: dict = {}
+_ENTRIES: dict = {}
+
+
+def _entry(name: str, n_ptr: int, n_int: int):
+    fn = _ENTRIES.get(name)
+    if fn is None:
+        fn = _ENTRIES[name] = _build.bind(_build.library("paged_attention"),
+                                          name, n_ptr, n_int)
+    return fn
+
+
+def _workspace(dev, stream: int, B: int, H: int, D: int, n_pos: int):
+    """The cached workspace and counters of ``dev`` / ``stream``, grown to
+    hold B * H heads' partial states over ceil(n_pos / SPLIT_POSITIONS)
+    splits."""
+    n_ws = B * H * -(-n_pos // SPLIT_POSITIONS) * (D + 2)
+    key = (dev.index, stream)
+    ws = _WORKSPACE.get(key)
+    if ws is None or ws[0].numel() < n_ws or ws[1].numel() < B * H:
+        old = (0, 0) if ws is None else (ws[0].numel(), ws[1].numel())
+        ws = _WORKSPACE[key] = (
+            torch.empty(max(n_ws, old[0]), dtype=torch.float32, device=dev),
+            torch.zeros(max(B * H, old[1]), dtype=torch.int32, device=dev))
+    return ws
 
 
 def _group(q, KH: int) -> int:
@@ -77,12 +113,13 @@ def paged_attention(q, k_pages, v_pages, block_tables, context_lens):
     B, KH, G, D, page, pps, code = _check(q, k_pages, v_pages, block_tables,
                                           context_lens)
     out = torch.empty_like(q)
-    lib = _build.library("paged_attention")
-    fn = _build.bind(lib, "paged_attention_fwd", 6, 7)
-    rc = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-            block_tables.data_ptr(), context_lens.data_ptr(), out.data_ptr(),
-            B, KH, G, D, page, pps, code,
-            torch.cuda.current_stream(q.device).cuda_stream)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    ws, counters = _workspace(q.device, stream, B, KH * G, D, pps * page)
+    rc = _entry("paged_attention_fwd", 8, 8)(
+        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+        block_tables.data_ptr(), context_lens.data_ptr(), out.data_ptr(),
+        ws.data_ptr(), counters.data_ptr(), B, KH, G, D, page, pps,
+        SPLIT_POSITIONS, code, stream)
     _build.check("paged_attention", "paged_attention_fwd", rc)
     _build.LAUNCHES["paged_attention"] += 1
     return out
@@ -112,13 +149,16 @@ def fused_decode_attention(q, k_pages, v_pages, block_tables, context_lens,
             or tail_lens.shape != (B,) or k_tail.shape[1] < 1:
         raise ValueError("tails must be (B, Kt >= 1, KH, D), lengths (B,)")
     out = torch.empty_like(q)
-    lib = _build.library("paged_attention")
-    fn = _build.bind(lib, "paged_decode_tail_fwd", 9, 8)
-    rc = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-            block_tables.data_ptr(), context_lens.data_ptr(),
-            k_tail.data_ptr(), v_tail.data_ptr(), tail_lens.data_ptr(),
-            out.data_ptr(), B, KH, G, D, page, pps, k_tail.shape[1], code,
-            torch.cuda.current_stream(q.device).cuda_stream)
+    kt_cap = k_tail.shape[1]
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    ws, counters = _workspace(q.device, stream, B, KH * G, D,
+                              pps * page + kt_cap)
+    rc = _entry("paged_decode_tail_fwd", 11, 9)(
+        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+        block_tables.data_ptr(), context_lens.data_ptr(), k_tail.data_ptr(),
+        v_tail.data_ptr(), tail_lens.data_ptr(), out.data_ptr(),
+        ws.data_ptr(), counters.data_ptr(), B, KH, G, D, page, pps, kt_cap,
+        SPLIT_POSITIONS, code, stream)
     _build.check("paged_attention", "paged_decode_tail_fwd", rc)
     _build.LAUNCHES["fused_decode_attention"] += 1
     return out

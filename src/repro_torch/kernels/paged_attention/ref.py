@@ -6,7 +6,8 @@ with no valid position (empty context and empty tail) is zeros. (The JAX
 package's jnp oracle ``paged_attention_ref`` softmaxes such a row to a
 uniform average instead; its Pallas kernels, which these mirror, give
 zeros.) The CPU path of every wrapper in ``ops.py`` runs these, and the
-card checks hold the CUDA kernels against them.
+card checks hold the CUDA kernels against them. ``split_decode_attention_ref``
+models the CUDA kernel's split-K schedule for the tests; no wrapper runs it.
 """
 from __future__ import annotations
 
@@ -92,3 +93,52 @@ def fused_decode_attention_ref(q, k_pages, v_pages, block_tables,
     return decode_tail_attention_ref(
         q, gather_kv(k_pages, block_tables), gather_kv(v_pages, block_tables),
         context_lens, k_tail, v_tail, tail_lens)
+
+
+def split_decode_attention_ref(q, k_pages, v_pages, block_tables,
+                               context_lens, k_tail=None, v_tail=None,
+                               tail_lens=None, *, split):
+    """Plain model of the CUDA kernel's split-K schedule, for the tests.
+
+    The sequence is positions ``[0, ctx)`` of the pages then ``[0, tl)`` of
+    the tail (none without one); the host-known bound
+    ``PPS * page + Kt`` is cut into splits of ``split`` positions. Each
+    split forms its own ``(m, l, acc)`` -- ``m = NEG_INF`` and ``l = 0``
+    where it holds no valid position -- and the splits are combined with
+    weights ``exp(m_s - M)``, a split with ``l = 0`` weighing nothing.
+    Equals :func:`fused_decode_attention_ref` (with a tail) or
+    :func:`paged_attention_ref` (without) up to float32 rounding.
+    """
+    B, H, D = q.shape
+    KH = k_pages.shape[2]
+    k_ctx = gather_kv(k_pages, block_tables)
+    v_ctx = gather_kv(v_pages, block_tables)
+    n_ctx = k_ctx.shape[1]
+    if k_tail is None:
+        k_tail = v_tail = k_ctx[:, :0]
+        tail_lens = torch.zeros_like(context_lens)
+    kt_cap = k_tail.shape[1]
+    ctx = context_lens.long().clamp(max=n_ctx)
+    tl = tail_lens.long().clamp(max=kt_cap)
+    nsplit = -(-(n_ctx + kt_cap) // split)
+    pos = torch.arange(nsplit * split, device=q.device)[None, :]
+    valid = pos < (ctx + tl)[:, None]                       # (B, P)
+    # row of [context ; tail] that holds each position of the sequence
+    row = torch.where(pos < ctx[:, None], pos, n_ctx + pos - ctx[:, None])
+    row = torch.where(valid, row, 0)
+    idx = row[:, :, None, None].expand(-1, -1, KH, D)
+    k = torch.cat([k_ctx, k_tail], 1).gather(1, idx).float()
+    v = torch.cat([v_ctx, v_tail], 1).gather(1, idx).float()
+    qr = q.reshape(B, KH, H // KH, D).float() * (1.0 / math.sqrt(D))
+    s = torch.einsum("bhgd,bphd->bhgp", qr, k)
+    s = s.reshape(*s.shape[:3], nsplit, split)
+    ok = valid.reshape(B, 1, 1, nsplit, split)
+    m = torch.where(ok, s, NEG_INF).amax(-1)                # (B, KH, G, n)
+    p = torch.where(ok, torch.exp(s - m[..., None]), 0.0)
+    l = p.sum(-1)
+    acc = torch.einsum("bhgnk,bnkhd->bhgnd", p,
+                       v.reshape(B, nsplit, split, KH, D))
+    w = torch.where(l > 0, torch.exp(m - m.amax(-1, keepdim=True)), 0.0)
+    out = (acc * w[..., None]).sum(-2) \
+        / torch.clamp((l * w).sum(-1), min=1e-30)[..., None]
+    return out.reshape(B, H, D).to(q.dtype)
