@@ -16,7 +16,12 @@ package. Phases, each of which raises on a failed check (exit code 1):
    (the SSD scan, dense flash attention) and at edge geometries -- for
    the split-K paged decode kernels also at the edges of its splits, its
    launch geometry printed, its device time at two other split sizes and
-   the device time of one PyTorch sum over the same K/V bytes; then its
+   the device time of one PyTorch sum over the same K/V bytes; for the
+   SSD scan also at the chunk edges (s = Q, Q + 1, 16 chunks, b = 2), the
+   launch geometry and workspace of its three bf16 passes, each pass's
+   device time (profiler) beside one read and one copy of x, and each
+   instantiation's registers, spills and SASS count of tensor-core
+   instructions (``cuobjdump -sass``; fails without HGMMA/HMMA); then its
    time (median of CUDA-event timed runs, L2 flushed before each) beside
    the plain version's, a library yardstick's where one PyTorch call
    computes the same function (``scaled_dot_product_attention``, which the
@@ -39,7 +44,8 @@ package. Phases, each of which raises on a failed check (exit code 1):
 4. Slot engine at full width (zamba2-2.7b, random bf16 weights): after a
    warm-up, 8 prompts of 200..2048 tokens prefilled one-shot at their
    exact length through the kernel tier (54 ``ssd`` and 9
-   ``flash_attention`` launches a prompt, checked) and 64 tokens each
+   ``flash_attention`` launches a prompt, each ``ssd`` call one launch of
+   each of its three passes, checked) and 64 tokens each
    through the fused K=8 path; decode and prefill (one 2048-token
    prompt) windows traced as in phase 3; 2 requests through the per-step
    path; then a teacher-forced comparison of the kernel tier against the
@@ -52,6 +58,8 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -510,6 +518,120 @@ def ssd_bound(b, s, h, p, n, Q, elem):
             flops)
 
 
+# the bf16 SSD route's three launches, by kernel name
+SSD_PASSES = ("ssd_chunk_state_kernel", "ssd_state_pass_kernel",
+              "ssd_chunk_scan_kernel")
+SASS_OPS = ("HGMMA", "HMMA", "LDGSTS")
+
+
+def ssd_geometry(b, s, h, p, n, Q):
+    """Print and return the bf16 SSD route's launch at one shape: each
+    pass's grid, threads and dynamic shared memory, and the workspace."""
+    import ctypes
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.ssd import ops
+    fn = _build.library("ssd").ssd_geometry
+    fn.argtypes = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)]
+    out = (ctypes.c_int * 15)()
+    check(fn(b, s, h, p, n, Q, out) == 0, "ssd_geometry refused the shape")
+    ws = ops._entry("ssd_workspace_bytes")(b, s, h, p, n, Q, 1)
+    geo = {"workspace_bytes": ws}
+    for i, name in enumerate(SSD_PASSES):
+        gx, gy, gz, threads, smem = out[5 * i:5 * i + 5]
+        geo[name] = {"grid": [gx, gy, gz], "threads": threads,
+                     "dynamic_smem_bytes": smem}
+        print(f"  geometry ssd {name:22s} b={b} s={s} h={h} n={n}: "
+              f"{gx * gy * gz} blocks ({gx} x {gy} x {gz}) of {threads} "
+              f"threads, {smem} B dynamic shared memory")
+    print(f"  geometry ssd workspace b={b} s={s} h={h} n={n}: {ws} B")
+    return geo
+
+
+def pass_device_ms(torch, K, fn, names, n=20):
+    """Device time (ms a call) of each kernel of ``fn`` whose name holds one
+    of ``names``, from a torch.profiler trace of ``n`` calls, each after an
+    L2 flush; 0.0 where the trace saw no such kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            K.flush_buf.zero_()
+            fn()
+        torch.cuda.synchronize()
+    out = dict.fromkeys(names, 0.0)
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        for k in names:
+            if k in e.name:
+                out[k] += e.time_range.elapsed_us() / 1e3 / n
+    return out
+
+
+def instantiation(mangled):
+    """'ssd_chunk_scan_kernel<64>' for a mangled ssd kernel name, else
+    None."""
+    for name in SSD_PASSES + ("ssd_fma_kernel",):
+        if name in mangled:
+            tail = mangled.split(name, 1)[1]
+            m = re.match(r"I((?:Li\d+E)+)E", tail)
+            args = re.findall(r"Li(\d+)E", m.group(1)) if m else []
+            return f"{name}<{', '.join(args)}>" if args else name
+    return None
+
+
+def ssd_sass():
+    """Per ssd kernel instantiation: registers and spills from this run's
+    ptxas log, and the count of tensor-core (HGMMA, HMMA) and cp.async
+    (LDGSTS) instructions in the built library (``cuobjdump -sass``).
+    Fails unless both bf16 product passes run on the tensor cores."""
+    from repro_torch.kernels import _build
+    out = {}
+    cur = None
+    for line in _build.BUILD_LOG.get("ssd", "").splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            cur = out.setdefault(instantiation(m.group(1)) or m.group(1), {})
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and cur is not None:
+            cur["spill_stores"], cur["spill_loads"] = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur is not None:
+            cur["registers"] = int(m.group(1))
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    check(Path(tool).exists(), "cuobjdump not found: no SASS count")
+    sass = subprocess.run([tool, "-sass", str(_build._paths("ssd")[1])],
+                          capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    cur = None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            cur = out.setdefault(instantiation(m.group(1)) or m.group(1), {})
+            cur.update(dict.fromkeys(SASS_OPS, 0))
+            continue
+        if cur is not None:
+            for op in re.findall(r"\b(" + "|".join(SASS_OPS) + r")\b", line):
+                cur[op] += 1
+    for name, r in sorted(out.items()):
+        print(f"  ssd {name:28s} {r.get('registers', '?')} registers, "
+              f"spills {r.get('spill_stores', '?')}/"
+              f"{r.get('spill_loads', '?')} B; SASS "
+              + ", ".join(f"{r.get(op, 0)} {op}" for op in SASS_OPS))
+    for name, r in out.items():
+        if name.startswith((SSD_PASSES[0], SSD_PASSES[2])):
+            check(r.get("HGMMA", 0) + r.get("HMMA", 0) > 0,
+                  f"{name}: no tensor-core instruction in its SASS")
+    check(any(n.startswith("ssd_chunk_scan_kernel") for n in out),
+          "no ssd_chunk_scan_kernel in the ssd library's SASS")
+    return out
+
+
 def flash_bound(B, S, H, KH, D, window, seq_k, elem):
     """(least ms, by what, operations) of causal dense attention: q, k, v
     and the output once, or 4 * D flops for every visible (query, key)
@@ -571,6 +693,14 @@ def run_hybrid_kernel_checks(torch, dev):
         (dict(b=1, s=1, h=80, p=64, n=64, dtype=f32), "s=1, f32"),
         (dict(b=2, s=300, h=24, p=64, n=128, dtype=bf16),
          "b=2 s=300 n=128, bf16"),
+        (dict(b=1, s=256, h=80, p=64, n=64, dtype=bf16),
+         "s=256 = Q: one full chunk, bf16"),
+        (dict(b=1, s=257, h=80, p=64, n=64, dtype=bf16),
+         "s=257 = Q+1: a one-row last chunk, bf16"),
+        (dict(b=1, s=4096, h=80, p=64, n=64, dtype=bf16),
+         "s=4096: 16 chunks, bf16"),
+        (dict(b=2, s=1000, h=80, p=64, n=64, dtype=bf16),
+         "b=2 s=1000 n=64, bf16"),
     ]
     print("  (SSD: y against ssd_chunked by dtype; final state within "
           f"{SSD_STATE_TOL} of its scale)")
@@ -590,7 +720,26 @@ def run_hybrid_kernel_checks(torch, dev):
     results["ssd"] = dict(
         max_abs_err=err_ssd, bound_ms=b_ssd, bound_by=by_ssd, flops=f_ssd,
         **K.timings(lambda: ssd(*sm, 256), lambda: ssd_chunked(*sm, 256)))
-    del sm, y, yr
+    results["ssd"]["geometry"] = {
+        "zamba2 s=2048 n=64": ssd_geometry(1, 2048, 80, 64, 64, 256),
+        "mamba2-130m s=1536 n=128": ssd_geometry(1, 1536, 24, 64, 128, 256)}
+    passes = pass_device_ms(torch, K, lambda: ssd(*sm, 256), SSD_PASSES)
+    results["ssd"]["device_ms_by_pass"] = passes
+    for name, ms in passes.items():
+        print(f"  time ssd pass {name:24s} (device time, profiler) "
+              + (f"{ms:.4f} ms" if ms else "not measured"))
+    # what moving the passes' main bytes alone takes, timed the same way:
+    # one read of x (pass 1 reads it; pass 3 reads it again from L2 or
+    # device memory) and one copy of x (pass 3 reads x and writes y)
+    yc = torch.empty_like(sm[0])
+    floors = {"read_x": K.time_ms(lambda: sm[0].sum(), device=True),
+              "copy_x": K.time_ms(lambda: yc.copy_(sm[0]), device=True)}
+    results["ssd"]["floors_device_ms"] = floors
+    print(f"  floors: torch sum over x ({sm[0].nbytes} B) "
+          f"{floors['read_x']:.4f} ms, copy of x {floors['copy_x']:.4f} ms "
+          "(device time)")
+    results["ssd"]["sass"] = ssd_sass()
+    del sm, y, yr, yc
     torch.cuda.synchronize()
 
     # -- dense flash attention, Sq == Sk (start- and end-aligned agree) --
@@ -706,7 +855,10 @@ PORT_KERNELS = (("paged_decode_kernel", "paged decode attention"),
                 ("paged_prefill_tc_kernel", "paged_flash_prefill"),
                 ("flash_kernel", "flash_attention"),
                 ("flash_tc_kernel", "flash_attention"),
-                ("ssd_kernel", "ssd"))
+                ("ssd_chunk_state_kernel", "ssd"),
+                ("ssd_state_pass_kernel", "ssd"),
+                ("ssd_chunk_scan_kernel", "ssd"),
+                ("ssd_fma_kernel", "ssd"))
 
 
 def port_kernel(name: str):
@@ -1082,8 +1234,10 @@ def run_hybrid_engine(torch, dev):
     _build.reset_launches()
     outs, t_pf, t_dec, n_dec = drive(torch, eng, requests(lens, 64, 4))
     fused_launches = dict(_build.LAUNCHES)
+    pass_launches = dict(_build.PASS_LAUNCHES)
     transfers = dict(backends.TRANSFER_STATS)
     print(f"  fused path launches {fused_launches} transfers {transfers}")
+    print(f"  ssd launches by pass {pass_launches}")
     check(len(outs) == 8, f"{len(outs)} of 8 requests finished")
     for o in outs:
         check(o.finish_reason == "length" and len(o.output_tokens) == 64,
@@ -1096,6 +1250,11 @@ def run_hybrid_engine(torch, dev):
     check(fused_launches["ssd"] == cfg.num_layers * len(lens),
           f"ssd launched {fused_launches['ssd']} times, expected "
           f"{cfg.num_layers} for each of {len(lens)} prompts")
+    check(all(pass_launches[k] == fused_launches["ssd"]
+              for k in ("ssd_chunk_state", "ssd_state_pass",
+                        "ssd_chunk_scan")) and pass_launches["ssd_fma"] == 0,
+          "the bf16 ssd calls did not launch each of their three passes "
+          "once")
     check(fused_launches["flash_attention"] == n_shared * len(lens),
           f"flash_attention launched {fused_launches['flash_attention']} "
           f"times, expected {n_shared} for each of {len(lens)} prompts")
@@ -1194,6 +1353,7 @@ def run_hybrid_engine(torch, dev):
     metrics["teacher_forced_rel_err"] = worst
     metrics["plain_spread_rel_err"] = spread
     metrics["greedy_match_share"] = share
+    metrics["ssd_launches_by_pass"] = pass_launches
     launches = {"ssd": fused_launches["ssd"],
                 "flash_attention": fused_launches["flash_attention"]}
     return launches, metrics
@@ -1266,8 +1426,12 @@ def main() -> int:
               "device_ms_by_split": {
                   n: timing[n]["device_ms_by_split"]
                   for n in ("paged_attention", "fused_decode_attention")}}
+    ssd_kernel = {k: timing["ssd"][k]
+                  for k in ("geometry", "device_ms_by_pass",
+                            "floors_device_ms", "sass")}
     print(json.dumps({"metrics": metrics, "hybrid_metrics": hybrid_metrics,
-                      "decode_kernel": decode, "build_s": build_s}))
+                      "decode_kernel": decode, "ssd_kernel": ssd_kernel,
+                      "build_s": build_s}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -11,7 +11,8 @@ tensors: the CPU tests never need ``nvcc``.
 Every C entry returns ``cudaGetLastError()`` after its launch;
 :func:`check` raises on anything but 0. ``LAUNCHES`` counts launches per
 kernel wrapper, so a run can show that the main path went through the
-kernels.
+kernels; ``PASS_LAUNCHES`` counts the passes of a wrapper that launches
+several device kernels.
 """
 from __future__ import annotations
 
@@ -32,14 +33,20 @@ NVCC_TIMEOUT_S = 600
 # launches per kernel wrapper; incremented only where a kernel is launched
 LAUNCHES = {"paged_attention": 0, "fused_decode_attention": 0,
             "paged_flash_prefill": 0, "ssd": 0, "flash_attention": 0}
+# device kernels per pass of a wrapper that launches several: the SSD
+# scan's bf16 route launches its three passes once a call, float32 its one
+# FMA kernel
+PASS_LAUNCHES = {"ssd_chunk_state": 0, "ssd_state_pass": 0,
+                 "ssd_chunk_scan": 0, "ssd_fma": 0}
 # source name -> nvcc's output (register / shared-memory use from ptxas)
 BUILD_LOG: dict[str, str] = {}
 _LIBS: dict[str, ctypes.CDLL] = {}
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, PASS_LAUNCHES):
+        for k in counts:
+            counts[k] = 0
 
 
 def _nvcc() -> str:

@@ -8,8 +8,17 @@ layout and reads B and C from their (b, s, n) layout through its row
 stride, so the wrapper makes no transposes and no per-head copies (the
 JAX wrapper's exist for TPU block specs); it allocates y and the final
 state and launches on the current stream without synchronising.
+
+bfloat16 runs three chunk-parallel passes on the tensor cores (chunk
+states, the sequential state pass, the chunk scan; ``ref.ssd_passes_ref``
+models them on the CPU) through a workspace of per-chunk states and
+cumulative decays. The workspace is made once per (device, stream) and
+grown when a call needs more, so a call allocates nothing but y and the
+state. float32 runs the FMA kernel and needs no workspace.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -20,6 +29,34 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (64,)
 STATE_DIMS = (64, 128)
 MAX_CHUNK = 256
+# (device index, stream) -> uint8 workspace
+_WORKSPACE: dict = {}
+_ENTRIES: dict = {}
+
+
+def _entry(name: str):
+    fn = _ENTRIES.get(name)
+    if fn is None:
+        lib = _build.library("ssd")
+        if name == "ssd_fwd":
+            fn = _build.bind(lib, name, 7, 9)
+        else:   # ssd_workspace_bytes(b, S, H, P, N, Q, dtype)
+            fn = getattr(lib, name)
+            fn.argtypes = [ctypes.c_int] * 7
+            fn.restype = ctypes.c_longlong
+        _ENTRIES[name] = fn
+    return fn
+
+
+def _workspace(dev, stream: int, nbytes: int):
+    """The cached workspace of ``dev`` / ``stream``, at least ``nbytes``."""
+    key = (dev.index, stream)
+    ws = _WORKSPACE.get(key)
+    if ws is None or ws.numel() < nbytes:
+        old = 0 if ws is None else ws.numel()
+        ws = _WORKSPACE[key] = torch.empty(max(nbytes, old),
+                                           dtype=torch.uint8, device=dev)
+    return ws
 
 
 def ssd(x, a, B, C, chunk=256):
@@ -53,14 +90,26 @@ def ssd(x, a, B, C, chunk=256):
         raise ValueError(f"the kernel takes head dim in {HEAD_DIMS}, state "
                          f"dim in {STATE_DIMS} and chunks up to {MAX_CHUNK}; "
                          f"got p={p} n={n} chunk={Q}")
+    code = _DTYPE_CODE[x.dtype]
+    if code == 1 and (any(t.data_ptr() % 16 for t in (x, B, C))
+                      or B.stride(0) % 8 or B.stride(1) % 8):
+        raise ValueError("bfloat16 x, B and C rows must start on 16-byte "
+                         "boundaries (row strides a multiple of 8)")
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    nbytes = _entry("ssd_workspace_bytes")(b, s, h, p, n, Q, code)
+    if nbytes < 0:
+        raise ValueError(f"ssd_fwd does not take b={b} s={s} h={h} p={p} "
+                         f"n={n} Q={Q}")
+    ws = _workspace(x.device, stream, nbytes).data_ptr() if nbytes else None
     y = torch.empty_like(x)
     state = torch.empty((b, h, p, n), dtype=torch.float32, device=x.device)
-    lib = _build.library("ssd")
-    fn = _build.bind(lib, "ssd_fwd", 6, 9)
-    rc = fn(x.data_ptr(), a.data_ptr(), B.data_ptr(), C.data_ptr(),
-            y.data_ptr(), state.data_ptr(), b, s, h, p, n, Q,
-            B.stride(0), B.stride(1), _DTYPE_CODE[x.dtype],
-            torch.cuda.current_stream(x.device).cuda_stream)
+    rc = _entry("ssd_fwd")(
+        x.data_ptr(), a.data_ptr(), B.data_ptr(), C.data_ptr(), y.data_ptr(),
+        state.data_ptr(), ws, b, s, h, p, n, Q, B.stride(0), B.stride(1),
+        code, stream)
     _build.check("ssd", "ssd_fwd", rc)
     _build.LAUNCHES["ssd"] += 1
+    for k in (("ssd_chunk_state", "ssd_state_pass", "ssd_chunk_scan")
+              if code == 1 else ("ssd_fma",)):
+        _build.PASS_LAUNCHES[k] += 1
     return y, state
