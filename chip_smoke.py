@@ -51,7 +51,19 @@ package. Phases, each of which raises on a failed check (exit code 1):
    path; then a teacher-forced comparison of the kernel tier against the
    plain tier, beside the plain tier's own spread when only the order of
    its sums changes.
-5. A ``{"kernels": [...]}`` line, the nvidia-smi line, and last
+5. Speculative decoding and swap preemption at full width (llama3.2-3b,
+   the phase-3 engine settings, k = 4): 8 requests on the paged engine
+   with the target as its own draft (acceptance at least 0.9,
+   ``fused_decode_attention`` and ``paged_flash_prefill`` launched), the
+   same requests without speculation, one verify round traced (device
+   time by kernel group and by profiler range: the draft's loop, the
+   verify, its page gathers and its float32 block attention); the verify
+   forward's logits against sequential decode steps (teacher-forced,
+   LOGITS_TOL); a cold draft (the same widths cut to 2 layers; its
+   catch-up must run); the slot engine speculating (``flash_attention``
+   launched); swap preemption (one swap out and in, the request finishes
+   at its length) and a byte-exact swap round trip at backend level.
+6. A ``{"kernels": [...]}`` line, the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -882,13 +894,15 @@ def kernel_group(name: str) -> str:
     return "other (elementwise, reductions, sort, indexing)"
 
 
-def device_time(prof):
+def device_time(prof, skip=()):
     """Device time (us) of a torch.profiler trace by kernel group, by
-    kernel name and by port kernel, and the number of device activities."""
+    kernel name and by port kernel, and the number of device activities.
+    ``skip``: names of profiler ranges, whose device-side spans are not
+    kernels."""
     from torch.autograd import DeviceType
     by_group, by_name, by_port, n = {}, {}, {}, 0
     for e in prof.events():
-        if e.device_type != DeviceType.CUDA:
+        if e.device_type != DeviceType.CUDA or e.name in skip:
             continue
         n += 1
         us = e.time_range.elapsed_us()
@@ -1359,6 +1373,431 @@ def run_hybrid_engine(torch, dev):
     return launches, metrics
 
 
+# ---------------------------------------------------------------------------
+# phase 5: speculative decoding and swap preemption at full width
+# ---------------------------------------------------------------------------
+
+SPEC_TOKENS = 4
+# with the target as its own draft, a proposal is rejected only where the
+# draft's decode arithmetic and the verify forward's round a logit apart
+# and the seeded sampler's pick moves with it; held in float32, where the
+# two routes differ by ~1e-6 of the logits' scale. In bf16 the logits of
+# a 128256-wide head are quantized to 8 mantissa bits, and seeded top-p
+# assigns its Gumbel noise by sorted rank, so any one-ulp move reorders
+# it: the reference itself accepts 0.003 of top-p proposals there
+# (scripts/spec_acceptance_probe.py), and the bf16 runs report their
+# acceptance by sampling mode without a bound
+SPEC_MIN_ACCEPTANCE = 0.9
+
+
+def wrap(obj, name, around):
+    """Shadow ``obj.name`` with ``around(original, *args)``; returns the
+    original."""
+    fn = getattr(obj, name)
+    setattr(obj, name, lambda *a, **kw: around(fn, *a, **kw))
+    return fn
+
+
+def labelled(torch, fn, label):
+    """``fn`` inside a profiler range named ``label``."""
+    def run(*a, **kw):
+        with torch.profiler.record_function(label):
+            return fn(*a, **kw)
+    return run
+
+
+def label_device_ms(prof, labels):
+    """Device time (ms) of the kernels launched inside each profiler range
+    named in ``labels`` (the host-side range events, children included)."""
+    from torch.autograd import DeviceType
+    out = dict.fromkeys(labels, 0.0)
+    for e in prof.events():
+        if e.name in out and e.device_type == DeviceType.CPU:
+            out[e.name] += getattr(e, "device_time_total", 0.0) / 1e3
+    return out
+
+
+def spec_drive(torch, eng, reqs, max_tokens, V, what, min_rate=None):
+    """Run a speculating engine to completion and check it: every request
+    finishes at its length, no logits cross to the host, verify rounds
+    ran (and, with ``min_rate``, accepted at least that share). Counts the
+    tokens the verify rounds emitted and the slots they served. Returns
+    (launches, metrics)."""
+    from repro_torch.kernels import _build
+    from repro_torch.serving import backends
+    emitted = {"tokens": 0, "slot_rounds": 0}
+    # accepted, proposed, proposed within the generation limit: a round
+    # that reaches a request's max_tokens cannot emit the proposals past
+    # it, and the engine's rate counts those as rejected
+    by_mode = {"greedy": [0, 0, 0], "top-p": [0, 0, 0]}
+
+    def count(verify, draft, *a):
+        out, produced, done = verify(draft, *a)
+        emitted["tokens"] += int(produced.sum())
+        emitted["slot_rounds"] += int((produced > 0).sum())
+        k = draft.shape[1]
+        for rid, run in eng.running.items():
+            mode = by_mode["greedy" if run.req.sampling.temperature <= 0
+                           else "top-p"]
+            left = run.req.sampling.max_tokens - len(run.output_tokens)
+            mode[0] += max(int(produced[eng.backend.slot(rid)]) - 1, 0)
+            mode[1] += k
+            mode[2] += min(k, left - 1)
+        return out, produced, done
+
+    wrap(eng.backend, "spec_verify", count)
+    backends.reset_transfer_stats()
+    _build.reset_launches()
+    outs, _, t_dec, n_dec = drive(torch, eng, reqs)
+    launches = dict(_build.LAUNCHES)
+    rate = eng.spec_acceptance_rate()
+    rounds = eng.stats["spec_rounds"]
+    per_round = emitted["tokens"] / max(rounds, 1)
+    per_seq = emitted["tokens"] / max(emitted["slot_rounds"], 1)
+    rates = {m: a / p for m, (a, p, _) in by_mode.items() if p}
+    acc, usable = (sum(v[i] for v in by_mode.values()) for i in (0, 2))
+    within = acc / usable if usable else 0.0
+    print(f"  {what}: {len(outs)} requests, {rounds} verify rounds, "
+          f"acceptance {rate:.4f} (by sampling mode "
+          f"{ {m: round(r, 4) for m, r in rates.items()} }; of the "
+          f"proposals within the generation limit {within:.4f}), "
+          f"{per_round:.2f} tokens a round ({per_seq:.3f} a sequence), "
+          f"decode-only steps {n_dec / t_dec:.1f} tokens/s; launches "
+          f"{launches}")
+    check(len(outs) == len(reqs), f"{what}: {len(outs)} of {len(reqs)} "
+          f"requests finished")
+    for o in outs:
+        check(o.finish_reason == "length"
+              and len(o.output_tokens) == max_tokens,
+              f"{what}: {o.request_id}: {o.finish_reason} after "
+              f"{len(o.output_tokens)} tokens, expected length after "
+              f"{max_tokens}")
+        check(all(0 <= t < V for t in o.output_tokens),
+              f"{what}: {o.request_id}: token id out of range")
+    check(backends.TRANSFER_STATS["decode_logits_transfers"] == 0,
+          f"{what}: logits crossed to the host")
+    check(rounds > 0, f"{what}: no verify round ran")
+    if min_rate is not None:
+        check(within >= min_rate, f"{what}: acceptance of the proposals "
+              f"within the generation limit {within:.4f} below {min_rate}")
+    return launches, {"acceptance": rate, "acceptance_by_mode": rates,
+                      "acceptance_within_limit": within,
+                      "spec_rounds": rounds,
+                      "tokens_per_round": per_round,
+                      "tokens_per_sequence_round": per_seq,
+                      "decode_tok_s": n_dec / t_dec if t_dec else None}
+
+
+def profile_spec_round(torch, eng, reqs):
+    """One verify round traced: the engine steps ``reqs`` until every one
+    is decoding, then one round (the draft's proposal loop and the
+    target's verify) runs under torch.profiler with profiler ranges
+    around the draft's loop, the verify call, and inside it every
+    ``gather_kv`` and ``_spec_block_attention``. Prints device time by
+    kernel group and by range."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.serving import backends
+    for r in reqs:
+        eng.add_request(r)
+    for _ in range(100):
+        if len(eng.running) == len(reqs) and not eng.prefilling \
+                and not eng.slots.dirty:
+            break
+        eng.step()
+    check(len(eng.running) == len(reqs), "spec profile: requests not running")
+    labels = ("draft proposal loop", "verify", "verify: gather_kv",
+              "verify: f32 block attention")
+    wrap(eng.draft_backend, "fused_decode",
+         labelled(torch, lambda fn, *a: fn(*a), labels[0]))
+    wrap(eng.backend, "spec_verify",
+         labelled(torch, lambda fn, *a: fn(*a), labels[1]))
+    saved = backends.gather_kv, backends._spec_block_attention
+    backends.gather_kv = labelled(torch, saved[0], labels[2])
+    backends._spec_block_attention = labelled(torch, saved[1], labels[3])
+    rounds = eng.stats["spec_rounds"]
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.step()                       # one round untraced, timed
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            eng.step()
+            torch.cuda.synchronize()
+    finally:
+        backends.gather_kv, backends._spec_block_attention = saved
+    check(eng.stats["spec_rounds"] == rounds + 2,
+          "spec profile: the timed and traced steps were not verify rounds")
+    by_group, by_name, by_port, n_act = device_time(prof, skip=labels)
+    busy = sum(by_group.values()) / 1e3
+    by_label = label_device_ms(prof, labels)
+    print(f"  verify round ({len(reqs)} sequences, k={SPEC_TOKENS}): "
+          f"{wall_ms:.3f} ms on the host clock untraced; the next round "
+          f"traced: device busy {busy:.3f} ms in {n_act} device activities"
+          + (f", idle share {1 - busy / wall_ms:.3f}" if busy else ""))
+    print_breakdown(by_group, by_name, by_port, 1, "")
+    for label, ms in by_label.items():
+        share = f"{ms / busy:.3f} of the round" if busy and ms else \
+            "not measured"
+        print(f"    range {label:38s} {ms:8.3f} ms  {share}")
+    attn = by_label[labels[2]] + by_label[labels[3]]
+    return {"spec_round_device_ms": busy, "spec_round_wall_ms": wall_ms,
+            "spec_round_device_ms_by_group": {
+                g: us / 1e3 for g, us in by_group.items()},
+            "spec_round_device_ms_by_range": by_label,
+            "verify_gather_attention_share": (attn / busy if busy and attn
+                                              else None)}
+
+
+SPEC_ENGINE = dict(backend="paged", use_kernel=True, page_size=64,
+                   max_slots=8, max_seq_len=4096, enable_prefix_cache=True,
+                   chunked_prefill_budget=512, decode_steps_per_sync=8)
+# the slot engine's decode reads every slot's whole cache row in float32
+# (ROADMAP 9-open), so its rows are cut to what these requests need
+SLOT_SPEC_ENGINE = dict(backend="slots", max_slots=4, max_seq_len=1024,
+                        enable_prefix_cache=False, chunked_prefill_budget=0,
+                        spec_tokens=SPEC_TOKENS)
+SPEC_TAILS = (64, 91, 118, 146, 173, 201, 228, 256)   # linspace(64, 256, 8)
+
+
+def spec_engine(torch, dev, model, params, draft=None, **over):
+    from repro_torch.serving.engine import (ContinuousBatchingEngine,
+                                            EngineConfig)
+    dm, dp = draft if draft is not None else (None, None)
+    return ContinuousBatchingEngine(
+        model, params, EngineConfig(**dict(SPEC_ENGINE, **over)),
+        draft_model=dm, draft_params=dp, device=dev)
+
+
+def self_draft_runs(torch, dev, model, params, what, min_rate=None):
+    """The target as its own draft (one params object): 8 requests on the
+    paged engine (a 512-token shared prefix, tails of 64..256, 48 new
+    tokens, half greedy and half seeded top-p), then 4 on the slot engine
+    (one-shot prefill, rows of 1024, 24 new tokens). Returns (paged launches, paged metrics,
+    slot metrics)."""
+    V = model.cfg.vocab_size
+    launches, paged = spec_drive(
+        torch, spec_engine(torch, dev, model, params, (model, params),
+                           spec_tokens=SPEC_TOKENS),
+        make_requests(8, 512, SPEC_TAILS, 48, V, seed=6), 48, V,
+        f"paged, draft = target, {what}", min_rate=min_rate)
+    check(launches["fused_decode_attention"] > 0
+          and launches["paged_flash_prefill"] > 0,
+          "paged spec path: fused_decode_attention or paged_flash_prefill "
+          "never launched")
+    torch.cuda.empty_cache()
+    slot_launches, slots = spec_drive(
+        torch, spec_engine(torch, dev, model, params, (model, params),
+                           **SLOT_SPEC_ENGINE),
+        make_requests(4, 512, SPEC_TAILS[1::2], 24, V, seed=8), 24, V,
+        f"slots, draft = target, {what}", min_rate=min_rate)
+    check(slot_launches["flash_attention"] > 0,
+          "slot spec path: flash_attention never launched")
+    torch.cuda.empty_cache()
+    return launches, paged, slots
+
+
+def run_spec_engine(torch, dev):
+    """llama3.2-3b at full width with the phase-3 engine settings:
+    speculative decoding with the target as its own draft (paged and slot
+    engines) and with a cold 2-layer draft, a teacher-forced check of the
+    verify forward, one traced verify round, swap preemption; then the
+    self-draft runs again in float32, held to SPEC_MIN_ACCEPTANCE."""
+    import numpy as np
+    from repro_torch.configs import REGISTRY
+    from repro_torch.models import make_model
+    from repro_torch.serving.backends import PagedBackend
+
+    cfg = REGISTRY["llama3.2-3b"]
+    print(f"phase 5: speculative decoding and swap at full width: "
+          f"{cfg.name}, k={SPEC_TOKENS}")
+    t_phase = time.perf_counter()
+    model = make_model(cfg)
+    params = model.init_params(torch.Generator(device=dev).manual_seed(0))
+    V = cfg.vocab_size
+
+    def engine(draft=None, **over):
+        return spec_engine(torch, dev, model, params, draft, **over)
+
+    def requests():
+        return make_requests(8, 512, SPEC_TAILS, 48, V, seed=6)
+
+    # -- warm-up of the speculative path (first-use costs stay out) --
+    drive(torch, engine((model, params), spec_tokens=SPEC_TOKENS),
+          make_requests(2, 300, [40, 90], 9, V, seed=9))
+
+    # -- 1) draft = target, bf16 as configured: paged and slots --
+    _, m, ms = self_draft_runs(torch, dev, model, params, cfg.param_dtype)
+    metrics = {"paged_self_draft": m, "slots_self_draft": ms}
+    _, _, t_dec, n_dec = drive(torch, engine(), requests())
+    metrics["nonspec_decode_tok_s"] = n_dec / t_dec
+    print(f"  the same requests without speculation (fused K=8): decode-only "
+          f"steps {n_dec / t_dec:.1f} tokens/s (speculating: "
+          f"{m['decode_tok_s']:.1f})")
+    metrics.update(profile_spec_round(
+        torch, engine((model, params), spec_tokens=SPEC_TOKENS), requests()))
+    torch.cuda.empty_cache()
+
+    # -- 2) teacher-forced: the verify forward against sequential steps --
+    be = PagedBackend(model, params, max_slots=2, max_len=4096, page_size=64,
+                      use_kernel=True, device=dev)
+    rng = np.random.default_rng(2)
+    for sid, n in enumerate((700, 530)):
+        task = be.start_prefill(f"s{sid}", rng.integers(2, V, size=n).tolist())
+        while be.prefill_chunk(task, 512)[0] is None:
+            pass
+    T = SPEC_TOKENS + 1
+    toks = rng.integers(2, V, size=(2, T))
+    block = be.verify_logits(toks).float().cpu().numpy()
+    worst, agree, ties = 0.0, 0, 0
+    for j in range(T):
+        step = be.decode_batch(toks[:, j])
+        worst = max(worst, float(np.abs(block[:, j] - step).max()
+                                 / max(np.abs(step).max(), 1e-6)))
+        for b in range(2):
+            same = int(block[b, j].argmax()) == int(step[b].argmax())
+            top2 = np.sort(step[b])[-2:]
+            agree += same
+            # a flip between two candidates closer than the routes differ
+            # is a tie, not a fault
+            ties += (not same) and (top2[1] - top2[0]
+                                    <= 2 * np.abs(block[b, j] - step[b]).max())
+    share = agree / (2 * T)
+    print(f"  teacher-forced verify: (2, {T}, {V}) verify logits against {T} "
+          f"decode steps: worst rel_err {worst:.3e} (tolerance "
+          f"{LOGITS_TOL}); greedy tokens that match: {share:.3f} ({ties} "
+          f"ties within the error)")
+    check(worst <= LOGITS_TOL, "verify logits disagree with sequential "
+          "decode steps")
+    check(agree + ties == 2 * T, "a greedy token differs between the verify "
+          "forward and the decode steps by more than their logits do")
+    metrics.update(verify_teacher_forced_rel_err=worst,
+                   verify_greedy_match_share=share)
+    # the verify forward multiplies B * T rows where a decode step
+    # multiplies B: whether a row's product depends on the row count
+    # (cuBLAS picks kernels by shape) is what separates the two routes'
+    # arithmetic beyond the attention
+    g = torch.Generator(device=dev).manual_seed(7)
+    x = torch.randn(8 * T, cfg.d_model, generator=g, device=dev).to(
+        params["embed"].dtype)
+    rows = {}
+    for name, w in (("wq", params["layers"]["attn"]["wq"][0]),
+                    ("wo", params["layers"]["attn"]["wo"][0]),
+                    ("w1", params["layers"]["mlp"]["w1"][0]),
+                    ("lm_head", params["embed"].T)):
+        xi = x[:, :w.shape[0]]
+        rows[name] = bool(torch.equal((xi @ w)[::T], xi[::T].contiguous() @ w))
+    print(f"  the same rows multiplied among {8 * T} and among 8: bitwise "
+          f"equal {rows}")
+    metrics["matmul_rows_equal_40_vs_8"] = rows
+    del be
+    torch.cuda.empty_cache()
+
+    # -- 3) paged, a cold draft: the same widths cut to 2 layers --
+    dcfg = dataclasses.replace(cfg, num_layers=2)
+    dmodel = make_model(dcfg)
+    dparams = dmodel.init_params(torch.Generator(device=dev).manual_seed(1))
+    eng = engine((dmodel, dparams), spec_tokens=SPEC_TOKENS)
+    catch_ups = []
+    wrap(eng.draft_backend, "spec_catch_up",
+         lambda fn, *a: (catch_ups.append(a[0]), fn(*a))[1])
+    _, m = spec_drive(torch, eng, make_requests(4, 512, SPEC_TAILS[::2], 24,
+                                                V, seed=7),
+                      24, V, f"paged, cold draft (full width cut to "
+                      f"{dcfg.num_layers} layers, seed 1)")
+    check(len(catch_ups) > 0, "cold draft: spec_catch_up never ran")
+    print(f"  cold draft: spec_catch_up ran {len(catch_ups)} times")
+    check(metrics["paged_self_draft"]["acceptance"] > m["acceptance"],
+          "the target as its own draft is accepted no more than a cold "
+          "draft")
+    metrics["paged_cold_draft"] = dict(m, catch_ups=len(catch_ups))
+    del eng, dparams
+    torch.cuda.empty_cache()
+
+    # -- 4) swap preemption --
+    sw = dict(scheduling_policy="priority", enable_preemption=True,
+              preempt_swap=True)
+
+    def swap_requests():
+        return make_requests(2, 0, [1500, 1530], 32, V, seed=10)
+
+    eng = engine(**sw)
+    for r in swap_requests():
+        eng.add_request(r)
+    base = {o.request_id: o.output_tokens for o in eng.run_to_completion()}
+    eng = engine(**sw)
+    moved = {}
+
+    def timed(fn, *a):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*a)
+        torch.cuda.synchronize()
+        moved[fn.__name__] = (time.perf_counter() - t0) * 1e3
+        blob = out if out is not None else a[-1]
+        moved["bytes"] = blob["k"].nbytes + blob["v"].nbytes
+        return out
+
+    wrap(eng.backend, "swap_out", timed)
+    wrap(eng.backend, "swap_in", timed)
+    for r in swap_requests():
+        eng.add_request(r)
+    outs = []
+    for _ in range(100):
+        outs += eng.step()
+        if "r1" in eng.running and len(eng.running["r1"].output_tokens) >= 4:
+            break
+    check(eng.preempt("r1"), "swap: r1 was not running")
+    outs += eng.run_to_completion()
+    got = {o.request_id: o for o in outs}
+    check(eng.stats["swap_outs"] == eng.stats["swap_ins"] == 1,
+          f"swap: {eng.stats['swap_outs']} swap-outs, "
+          f"{eng.stats['swap_ins']} swap-ins, expected 1 and 1")
+    r1 = got.get("r1")
+    check(r1 is not None and r1.finish_reason == "length"
+          and len(r1.output_tokens) == 32,
+          "swap: the preempted request did not finish at its length")
+    same = float(np.mean([a == b for a, b in zip(r1.output_tokens,
+                                                 base["r1"])]))
+    print(f"  swap: r1 preempted after {eng.stats['preemptions']} "
+          f"preemption(s), finished at its length; tokens equal to the "
+          f"uninterrupted run: {same:.3f}; swap_out {moved['swap_out']:.3f} "
+          f"ms, swap_in {moved['swap_in']:.3f} ms (host clock) for "
+          f"{moved['bytes']} bytes of K and V")
+    del eng
+    be = PagedBackend(model, params, max_slots=2, max_len=4096, page_size=64,
+                      use_kernel=True, device=dev)
+    rng = np.random.default_rng(3)
+    be.prefill("s", rng.integers(2, V, size=1500).tolist())
+    first = be.swap_out("s")
+    be.free("s")
+    be.prefill("squat", rng.integers(2, V, size=700).tolist())
+    be.swap_in("s", 1500, first)
+    second = be.swap_out("s")
+    check(all(torch.equal(first[n], second[n]) for n in ("k", "v")),
+          "swap: swap_out -> swap_in -> swap_out changed the K/V bytes")
+    print("  swap round trip (swap_out -> swap_in -> swap_out of 1500 "
+          "tokens, into other pages): K and V byte-identical")
+    metrics["swap"] = dict(moved, same_tokens_share=same)
+    del be, params
+    torch.cuda.empty_cache()
+
+    # -- 5) draft = target again in float32, the same widths: the two
+    # routes now differ by ~1e-6 of the logits' scale, so only real
+    # near-ties reject (SPEC_MIN_ACCEPTANCE) --
+    model32 = make_model(dataclasses.replace(cfg, param_dtype="float32"))
+    params32 = model32.init_params(torch.Generator(device=dev).manual_seed(0))
+    _, m, ms = self_draft_runs(torch, dev, model32, params32, "float32",
+                               min_rate=SPEC_MIN_ACCEPTANCE)
+    metrics.update(paged_self_draft_float32=m, slots_self_draft_float32=ms)
+    del params32
+    torch.cuda.empty_cache()
+    metrics["phase_s"] = time.perf_counter() - t_phase
+    print(f"  phase 5 in {metrics['phase_s']:.1f} s")
+    return metrics
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         fail(f"{SRC / 'repro_torch'} not found: run from a checkout")
@@ -1392,6 +1831,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     hybrid_launches, hybrid_metrics = run_hybrid_engine(torch, dev)
     launches.update(hybrid_launches)
+    torch.cuda.empty_cache()
+    spec_metrics = run_spec_engine(torch, dev)
 
     replaces = {
         "paged_attention": ("src/repro_torch/csrc/paged_attention.cu",
@@ -1430,6 +1871,7 @@ def main() -> int:
                   for k in ("geometry", "device_ms_by_pass",
                             "floors_device_ms", "sass")}
     print(json.dumps({"metrics": metrics, "hybrid_metrics": hybrid_metrics,
+                      "spec_metrics": spec_metrics,
                       "decode_kernel": decode, "ssd_kernel": ssd_kernel,
                       "build_s": build_s}))
     print(json.dumps({"kernels": kernels}))

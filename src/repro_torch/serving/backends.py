@@ -11,12 +11,9 @@ PagedBackend -- vLLM-style paged KV pool with block tables, for the dense
 The paged pools are two tensors (L, num_pages, page_size, KH, hd) on the
 backend's device, updated IN PLACE (``index_put_``) where the reference
 rebuilt immutable arrays; the host-side allocator is
-:class:`~repro_torch.serving.kv_cache.PagedKVCache`. The pools are two tensors (L, num_pages, page_size, KH, hd) on the
-backend's device, updated IN PLACE (``index_put_``) where the reference
-rebuilt immutable arrays; the host-side allocator is
 :class:`~repro_torch.serving.kv_cache.PagedKVCache`.
 
-Two decode paths, as in the reference:
+Three decode calls, as in the reference:
 
 * ``decode_batch(tokens)`` -- legacy host-driven step: one forward, the full
   ``(max_slots, V)`` logits come back to the host and the engine samples
@@ -26,6 +23,14 @@ Two decode paths, as in the reference:
   + stop/length checks; only ``(K, max_slots)`` token ids and the
   ``produced`` / ``done`` vectors cross to the host, once per call. Logits
   never leave the device.
+* ``spec_verify(draft_tokens, host_state)`` -- speculative decoding's
+  verify round (attention families): ONE forward feeds each slot its last
+  token and the k draft tokens, writes their KV at ``len..len+k``, attends
+  causally (plain PyTorch in float32, as the reference: no Pallas kernel
+  there), then samples all k+1 seeded targets, accepts the matching draft
+  prefix and latches stops/limits on the device. ``spec_headroom``,
+  ``reset_lens`` and ``spec_catch_up`` are its host-side companions (page
+  reservation, the draft cache's truncate-on-reject, the draft's resync).
 
 ``use_kernel`` picks the attention tier:
 
@@ -45,10 +50,9 @@ one-shot prompt's SSD scans (``ssd``) and its attention without a cache
 plain versions. Its chunked prefill (attention families) and its decode
 run plain PyTorch in both tiers, as the reference's do.
 
-Not ported in this slice (they raise ``NotImplementedError``):
-speculative decoding (``spec_verify`` and the slot backend's spec
-helpers) and swap preemption (``swap_out`` / ``swap_in``); tensor-parallel
-meshes.
+The paged backend also swaps a preempted sequence's KV to host memory and
+back (``swap_out`` / ``swap_in``). Not ported: tensor-parallel meshes
+(``NotImplementedError`` naming the ROADMAP item).
 
 Prefill protocol, shared with the engine::
 
@@ -58,6 +62,7 @@ Prefill protocol, shared with the engine::
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 
 import numpy as np
@@ -69,17 +74,16 @@ from repro_torch.kernels.flash_attention.ref import paged_prefill_attention_ref
 from repro_torch.kernels.paged_attention.ops import (fused_decode_attention,
                                                      paged_attention)
 from repro_torch.kernels.paged_attention.ref import (
-    fused_decode_attention_ref, paged_attention_ref)
+    fused_decode_attention_ref, gather_kv, paged_attention_ref)
 from repro_torch.models import LM
-from repro_torch.models.layers import (chunked_attention, mlp_layer,
+from repro_torch.models.layers import (NEG_INF, chunked_attention, mlp_layer,
                                        project_qkv, rms_norm)
 from repro_torch.models.transformer import _block, layer_params
 from repro_torch.serving.kv_cache import OutOfPages, PagedKVCache
-from repro_torch.serving.sampler import fold_seeds, sample_from_logits
+from repro_torch.serving.sampler import (fold_seeds, sample_from_logits,
+                                         spec_accept, spec_targets)
 
 ATTENTION_FAMILIES = ("dense",)
-_SPEC_NOT_PORTED = ("speculative decoding is not ported yet (ROADMAP Queue 1 "
-                    "item 7)")
 
 # -- host-transfer accounting -------------------------------------------------
 # The fused decode path's contract is that logits never cross to the host;
@@ -112,6 +116,16 @@ def _upload_state(host_state: dict, device) -> dict:
     return out
 
 
+def _to_host(out, produced, done):
+    """A decode call's (n, B) token ids and (B,) produced / done flags to
+    the host in ONE device->host copy. Returns numpy (out, produced,
+    done)."""
+    n = out.shape[0]
+    host = torch.cat([out, produced[None], done[None].to(torch.int32)])
+    host = host.cpu().numpy()
+    return host[:n], host[n], host[n + 1].astype(bool)
+
+
 def _sample_and_latch(st, logits, tokens, n_gen, done, produced, live):
     """Device-side sample + stop/limit latch for one fused decode step.
     ``live`` slots take the sampled token and advance; a live slot hitting
@@ -126,6 +140,57 @@ def _sample_and_latch(st, logits, tokens, n_gen, done, produced, live):
     done = done | (live & (hit_stop | (n_gen >= st["gen_limit"])))
     produced = produced + step
     return tokens, n_gen, done, produced
+
+
+def _spec_block_attention(q, k, v, lens, *, kv_major):
+    """Attention for a speculative verify block of T tokens per slot.
+
+    q: (B, T, H, D). k/v hold history PLUS the block's own KV (already
+    written): kv-heads-major (B, KH, S, D) for the slot cache, or
+    seq-major (B, S, KH, D) for a gathered page view. ``lens``: (B,) valid
+    history length BEFORE the block; query j attends [0, lens + j + 1),
+    the positions the sequential decode path sees there. float32 scores,
+    probabilities and values, as the reference. Returns (B, T, H, D) in
+    q's dtype."""
+    B, T, H, D = q.shape
+    KH = k.shape[1] if kv_major else k.shape[2]
+    qr = q.reshape(B, T, KH, H // KH, D).float()
+    sub = "btkgd,bksd->bkgts" if kv_major else "btkgd,bskd->bkgts"
+    s = torch.einsum(sub, qr, k.float()) * (1.0 / math.sqrt(D))
+    S = s.shape[-1]
+    visible = lens.long()[:, None] + 1 + torch.arange(T, device=q.device)
+    ok = torch.arange(S, device=q.device) < visible[:, :, None]  # (B, T, S)
+    p = torch.softmax(torch.where(ok[:, None, None], s, NEG_INF), dim=-1)
+    sub = "bkgts,bksd->btkgd" if kv_major else "bkgts,bskd->btkgd"
+    out = torch.einsum(sub, p, v.float())
+    return out.reshape(B, T, H, D).to(q.dtype)
+
+
+def _spec_accept_and_latch(st, logits, draft):
+    """Device-side acceptance + stop/limit latch for one speculative round
+    (the verify analogue of :func:`_sample_and_latch`). logits: (B, T, V)
+    with T = k + 1; draft: (B, k). Emits the accepted draft prefix and the
+    residual resample at the first mismatch (the bonus token when all
+    matched), truncated at the first stop-token / generation-limit hit;
+    inactive slots produce nothing. Returns (targets (B, T), produced (B,),
+    done (B,), st) with st's tokens / n_gen advanced by ``produced``."""
+    T = logits.shape[1]
+    targets = spec_targets(logits, st["temps"], st["top_ps"],
+                           st["seed_base"], st["n_gen"])
+    emit, n_emit = spec_accept(targets, draft)
+    n2 = st["n_gen"][:, None] + 1 + torch.arange(T, device=logits.device)
+    stop = st["stop_tok"][:, None]
+    hit = emit & (((stop >= 0) & (targets == stop))
+                  | (n2 >= st["gen_limit"][:, None]))
+    any_hit = hit.any(dim=1)
+    first_hit = torch.argmax(hit.to(torch.int32), dim=1).to(torch.int32)
+    produced = torch.where(any_hit, first_hit + 1, n_emit)
+    produced = torch.where(st["active"], produced, 0).to(torch.int32)
+    done = st["active"] & any_hit
+    last = targets.gather(1, torch.clamp(produced - 1, min=0).long()[:, None])
+    tokens = torch.where(produced > 0, last[:, 0], st["tokens"])
+    st = dict(st, tokens=tokens, n_gen=st["n_gen"] + produced)
+    return targets, produced, done, st
 
 
 def _chunk_layer(h, lp, cfg, positions, write_attend):
@@ -317,22 +382,97 @@ class SlotBackend:
             raise RuntimeError("fused_decode needs host_state on the first "
                                "call")
         out, produced, done, self._dec_st = self._fused_impl(self._dec_st, K)
-        host = torch.cat([out, produced[None], done[None].to(torch.int32)])
-        host = host.cpu().numpy()
-        return host[:K], host[K], host[K + 1].astype(bool)
+        return _to_host(out, produced, done)
 
-    # -- not ported in this slice ------------------------------------------------
+    @property
+    def supports_fused_decode(self) -> bool:
+        return True
+
+    # -- speculative decoding ----------------------------------------------------
+    @property
+    def supports_spec_decode(self) -> bool:
+        # the verify block rewrites cache positions; SSM/hybrid state cannot
+        # be rolled back, so only attention families speculate
+        return self.cfg.family in ATTENTION_FAMILIES
+
     def spec_headroom(self, k: int) -> int:
-        raise NotImplementedError(_SPEC_NOT_PORTED)
+        """Draft tokens a verify round can take: the dense cache has no
+        page pool to run dry (the engine already bounds k by
+        max_seq_len), so always k."""
+        return k
 
-    def spec_verify(self, draft_tokens, host_state=None):
-        raise NotImplementedError(_SPEC_NOT_PORTED)
-
-    def reset_lens(self, lens_by_seq: dict) -> None:
-        raise NotImplementedError(_SPEC_NOT_PORTED)
+    def reset_lens(self, lens_by_seq: dict[str, int]) -> None:
+        """The draft cache's truncate-on-reject: rebuild the (max_slots,)
+        length vector from the host (every live slot is given; a dead
+        slot's length is never read before its next prefill sets it). KV
+        rows past a new length are rewritten before the length crosses
+        them."""
+        lens = np.zeros((self.max_slots,), np.int32)
+        for sid, n in lens_by_seq.items():
+            lens[self.slot_of[sid]] = n
+        self.cache["len"] = self._put(lens)
 
     def spec_catch_up(self, seq_id: str, tokens: list, from_pos: int):
-        raise NotImplementedError(_SPEC_NOT_PORTED)
+        """Draft-cache resync after non-speculative rounds advanced the
+        emitted stream without the draft: compute KV for
+        ``tokens[from_pos:]`` into the sequence's slot through the
+        chunked-prefill body, leaving its length at ``len(tokens)``."""
+        task = PrefillTask(seq_id=seq_id, prompt=list(tokens), pos=from_pos)
+        self._compute_chunk(task, task.remaining)
+
+    def _verify_forward(self, tokens_in, lens, live):
+        """One forward of T tokens per slot against the slot cache: writes
+        their KV at positions lens..lens+T-1 of each live slot, then query
+        j attends [0, lens + j + 1). Returns logits (B, T, V) float32.
+
+        torch has no dropping scatter (the reference writes dead slots at
+        ``Smax`` with ``mode="drop"``), so a row that must not be written
+        -- a dead slot's, or a live one past the cache -- is routed to
+        position ``pos % Smax`` of its own slot and rewrites that row's own
+        value: never out of bounds, and never onto a row this block writes
+        (a live slot's wrapped positions lie below its ``lens``)."""
+        cfg = self.cfg
+        B, T = tokens_in.shape
+        Smax = self.cache["k"].shape[3]
+        positions = lens.long()[:, None] + torch.arange(T, device=self.device)
+        write = (live[:, None] & (positions < Smax))[..., None, None]
+        wpos = positions % Smax
+        bidx = torch.arange(B, device=self.device)[:, None]
+        h = self.params["embed"][tokens_in.long()]
+        for i, lp in enumerate(self._layers):
+            kc, vc = self.cache["k"][i], self.cache["v"][i]  # (B, KH, S, hd)
+
+            def write_attend(q, k, v, kc=kc, vc=vc):
+                for c, new in ((kc, k), (vc, v)):       # new: (B, T, KH, hd)
+                    c[bidx, :, wpos] = torch.where(write, new.to(self.dtype),
+                                                   c[bidx, :, wpos])
+                return _spec_block_attention(q, kc, vc, lens, kv_major=True)
+
+            h = _chunk_layer(h, lp, cfg, positions, write_attend)
+        h = rms_norm(h, self.params["final_norm"], cfg.norm_eps)
+        return self.model.logits(self.params, h)
+
+    def spec_verify(self, draft_tokens: np.ndarray, host_state=None):
+        """One speculative round's verification: ``draft_tokens`` (B, k)
+        from the draft's proposal loop. Verifies, accepts, resamples the
+        residual and truncates the cache on the device; logits never reach
+        the host. Returns (tokens (k+1, B), produced (B,), done (B,)) numpy
+        arrays."""
+        if host_state is not None:
+            self._dec_st = _upload_state(host_state, self.device)
+        if self._dec_st is None:
+            raise RuntimeError("spec_verify needs host_state on the first "
+                               "call")
+        st = self._dec_st
+        draft = self._put(draft_tokens, torch.long)
+        lens = self.cache["len"]
+        logits = self._verify_forward(
+            torch.cat([st["tokens"].long()[:, None], draft], dim=1), lens,
+            st["active"])
+        targets, produced, done, self._dec_st = _spec_accept_and_latch(
+            st, logits, draft)
+        self.cache["len"] = lens + produced
+        return _to_host(targets.T, produced, done)
 
     # -- lifecycle -----------------------------------------------------------------
     def free(self, seq_id: str):
@@ -462,6 +602,12 @@ class PagedBackend:
             self.decoding.add(task.seq_id)
             return logits, chunk
         return None, chunk
+
+    def prefill(self, seq_id: str, prompt: list):
+        """One-shot convenience: returns last-token logits (V,)."""
+        task = self.start_prefill(seq_id, prompt)
+        logits, _ = self.prefill_chunk(task, None)
+        return logits
 
     def _one_shot(self, seq_id: str, prompt: list):
         """Whole prompt in one forward; K/V land in the sequence's pages a
@@ -684,13 +830,19 @@ class PagedBackend:
         out, produced, done, self._dec_st, lens_d = impl(
             self._dec_st, tables_d, lens_d, K_eff)
         self._dev_tables = (tables_d, lens_d)
-        host = torch.cat([out, produced[None], done[None].to(torch.int32)])
-        host = host.cpu().numpy()
-        out_np, produced_np = host[:K_eff], host[K_eff]
+        return self._advance_decoding(*_to_host(out, produced, done))
+
+    @property
+    def supports_fused_decode(self) -> bool:
+        return True
+
+    def _advance_decoding(self, out, produced, done):
+        """Advance every decoding sequence's logical length by what the
+        device produced for its slot; passes the host arrays through."""
         for slot, sid in self.seq_of.items():
             if sid in self.decoding:
-                self.kv.advance_n(sid, int(produced_np[slot]))
-        return out_np, produced_np, host[K_eff + 1].astype(bool)
+                self.kv.advance_n(sid, int(produced[slot]))
+        return out, produced, done
 
     def _reserve_headroom(self, n: int) -> int:
         """Reserve page headroom for up to ``n`` token writes per decoding
@@ -726,17 +878,148 @@ class PagedBackend:
             self._dev_tables = (self._put(tables), self._put(lens))
             self._dev_tables_key = self.kv.table_version
 
-    # -- not ported in this slice ------------------------------------------------
-    def spec_verify(self, draft_tokens, host_state=None):
-        raise NotImplementedError(_SPEC_NOT_PORTED)
+    # -- speculative decoding ----------------------------------------------------
+    @property
+    def supports_spec_decode(self) -> bool:
+        return True
 
+    def spec_headroom(self, k: int) -> int:
+        """Reserve page headroom for a verify round of k draft tokens plus
+        the guaranteed target token; returns the k the pool can take (the
+        reservation policy of ``fused_decode``)."""
+        return self._reserve_headroom(k + 1) - 1
+
+    def reset_lens(self, lens_by_seq: dict[str, int]) -> None:
+        """Truncate-on-reject for the draft's paged cache between rounds:
+        roll each sequence's logical length back (pages stay as headroom;
+        ``rollback_to`` bumps ``table_version``, so the device lengths are
+        re-uploaded)."""
+        for sid, n in lens_by_seq.items():
+            self.kv.rollback_to(sid, n)
+
+    def spec_catch_up(self, seq_id: str, tokens: list, from_pos: int):
+        """Draft-cache resync after non-speculative rounds advanced the
+        emitted stream without the draft: compute KV for
+        ``tokens[from_pos:]`` into the sequence's pages through the
+        chunked-prefill body, leaving its logical length at
+        ``len(tokens)``."""
+        self.kv.rollback_to(seq_id, from_pos)
+        need = len(tokens) - from_pos
+        if self.kv.ensure_capacity(seq_id, need) < need:
+            raise OutOfPages(f"{seq_id}: pool exhausted on draft catch-up")
+        task = PrefillTask(seq_id=seq_id, prompt=list(tokens), pos=from_pos)
+        self._compute_chunk(task, task.remaining)
+        self.kv.advance_n(seq_id, need)
+        self.kv.table_version += 1       # the device lengths are stale now
+
+    def _ctx_pages(self, T: int) -> int:
+        """Block-table columns a verify block of T tokens can see: enough
+        for the longest decoding sequence's ``length + T``."""
+        longest = max((self.kv.length(sid) for sid in self.decoding),
+                      default=0)
+        return min(self.pages_per_seq, self.kv.pages_needed(longest + T))
+
+    def _verify_forward(self, tokens_in, tables, lens, live, n_ctx: int):
+        """One forward of T tokens per slot against the page pool: writes
+        their KV at positions lens..lens+T-1 (dead slots to trash page 0 at
+        offset 0, the page slot clamped to the last table column), then
+        query j attends [0, lens + j + 1) over the first ``n_ctx`` pages of
+        its table, gathered. Returns logits (B, T, V) float32."""
+        cfg, ps = self.cfg, self.page_size
+        T = tokens_in.shape[1]
+        positions = lens.long()[:, None] + torch.arange(T, device=self.device)
+        page_slot = torch.clamp(positions // ps, max=tables.shape[1] - 1)
+        live = live[:, None]
+        page_idx = torch.where(live, tables.gather(1, page_slot), 0).long()
+        off = torch.where(live, positions % ps, 0)
+        ctx = tables[:, :n_ctx]
+        h = self.params["embed"][tokens_in.long()]
+        for i, lp in enumerate(self._layers):
+            kp, vp = self.pools["k"][i], self.pools["v"][i]
+
+            def write_attend(q, k, v, kp=kp, vp=vp):
+                kp[page_idx, off] = k.to(self.dtype)
+                vp[page_idx, off] = v.to(self.dtype)
+                return _spec_block_attention(q, gather_kv(kp, ctx),
+                                             gather_kv(vp, ctx), lens,
+                                             kv_major=False)
+
+            h = _chunk_layer(h, lp, cfg, positions, write_attend)
+        h = rms_norm(h, self.params["final_norm"], cfg.norm_eps)
+        return self.model.logits(self.params, h)
+
+    def _prepare_verify(self, T: int, force: bool) -> None:
+        """Host-side prep of a verify block of T tokens: copy-on-write for
+        every page it writes, then the device (tables, lengths) pair."""
+        self._resolve_cow(T)
+        self._refresh_tables(force=force)
+
+    def spec_verify(self, draft_tokens: np.ndarray, host_state=None):
+        """One speculative round's verification (page headroom already
+        reserved by ``spec_headroom``): verify, accept, residual resample
+        and truncate on the device; logits never reach the host. Returns
+        (tokens (k+1, B), produced (B,), done (B,)) numpy arrays."""
+        T = draft_tokens.shape[1] + 1
+        self._prepare_verify(T, force=host_state is not None)
+        if host_state is not None:
+            self._dec_st = _upload_state(host_state, self.device)
+        if self._dec_st is None:
+            raise RuntimeError("spec_verify needs host_state on the first "
+                               "call")
+        st = self._dec_st
+        tables_d, lens_d = self._dev_tables
+        draft = self._put(draft_tokens, torch.long)
+        logits = self._verify_forward(
+            torch.cat([st["tokens"].long()[:, None], draft], dim=1), tables_d,
+            lens_d, st["active"], self._ctx_pages(T))
+        targets, produced, done, self._dec_st = _spec_accept_and_latch(
+            st, logits, draft)
+        self._dev_tables = (tables_d, lens_d + produced)
+        return self._advance_decoding(*_to_host(targets.T, produced, done))
+
+    def verify_logits(self, tokens_in: np.ndarray):
+        """The verify forward alone, for teacher-forced checks: feeds
+        ``tokens_in`` (max_slots, T) to every decoding sequence at its
+        length (page headroom reserved, copy-on-write resolved), writes
+        their KV and returns the (max_slots, T, V) logits on the device.
+        No length moves."""
+        T = tokens_in.shape[1]
+        if self._reserve_headroom(T) < T:
+            raise OutOfPages(f"no page headroom for a verify block of {T}")
+        self._prepare_verify(T, force=True)
+        tables_d, lens_d = self._dev_tables
+        live = self._put([self.seq_of.get(s) in self.decoding
+                          for s in range(self.max_slots)])
+        return self._verify_forward(self._put(tokens_in, torch.long),
+                                    tables_d, lens_d, live, self._ctx_pages(T))
+
+    # -- swap preemption -----------------------------------------------------------
     def swap_out(self, seq_id: str) -> dict:
-        raise NotImplementedError("swap preemption is not ported yet "
-                                  "(ROADMAP Queue 1 item 7)")
+        """Copy a sequence's computed KV to host memory: the (L, n_pages,
+        page, KH, hd) K and V of the pages covering its logical length
+        (headroom pages hold no committed KV). The caller frees the
+        sequence afterwards; ``swap_in`` restores it into fresh pages."""
+        n_tokens = self.kv.length(seq_id)
+        n_pages = self.kv.pages_needed(n_tokens)
+        table = self._put(self.kv._tables[seq_id][:n_pages], torch.long)
+        return {"k": self.pools["k"][:, table].cpu(),
+                "v": self.pools["v"][:, table].cpu(), "n_tokens": n_tokens}
 
     def swap_in(self, seq_id: str, n_tokens: int, blob: dict) -> None:
-        raise NotImplementedError("swap preemption is not ported yet "
-                                  "(ROADMAP Queue 1 item 7)")
+        """Rebind a swapped-out sequence: reserve a slot, allocate fresh
+        pages, write the saved KV back (one indexed store per pool) and
+        rejoin the decode set, with no recompute. ``n_tokens`` must equal
+        the blob's saved length."""
+        assert n_tokens == blob["n_tokens"], \
+            f"{seq_id}: swap blob holds {blob['n_tokens']} tokens, " \
+            f"restore asked for {n_tokens}"
+        slot = self.free_slots.pop()
+        self.slot_of[seq_id] = slot
+        self.seq_of[slot] = seq_id
+        pages = self._put(self.kv.allocate(seq_id, n_tokens), torch.long)
+        for name, pool in self.pools.items():
+            pool[:, pages] = blob[name].to(self.device)
+        self.decoding.add(seq_id)
 
     # -- lifecycle -----------------------------------------------------------------
     def free(self, seq_id: str):

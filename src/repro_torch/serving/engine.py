@@ -22,20 +22,31 @@ Features, as in the reference:
   K falls back to 1 whenever a prefill is in flight or the batch
   composition just changed; outputs are token-identical to the per-step
   path.
+* **Speculative decoding** (``spec_tokens`` = k > 0, with a draft model
+  of the attention family): per round the draft's fused loop proposes k
+  tokens and ONE target forward verifies all k+1 positions, accepting by
+  the seeded-sampler exact-match test (``serving/sampler.py``), so greedy
+  and seeded top-p streams stay token-identical to non-speculative
+  decoding. Both caches truncate to the accepted prefix each round; the
+  draft keeps its KV in a mirror backend of the target's kind.
 * **Scheduling + preemption** (``scheduling_policy``,
   ``enable_preemption``): FCFS, priority/QoS with per-class token budgets,
   EDF on TTFT deadlines (``serving/scheduler.py``). A preempted sequence
   publishes its pages to the prefix cache, is freed, and is restored by
-  recompute-via-prefix-cache with the same sampling state, so its stream
-  stays token-identical to an uninterrupted run.
+  recompute-via-prefix-cache -- or, with ``preempt_swap`` (paged backend),
+  by a host swap-out/in of its KV -- with the same sampling state, so its
+  stream stays token-identical to an uninterrupted run.
+* **Control-plane calls**: ``abort``, ``resume_request`` (cross-engine
+  failover through the restore path), ``saturated`` (autoscaler signal),
+  ``num_running``, ``num_waiting``, ``waiting``.
 
-Two cache backends, as in the reference: ``backend="paged"`` (dense
-family; prefix cache, page pool) and ``backend="slots"`` (every ported
-family: dense, SSM and hybrid; one contiguous cache row per slot).
+Two cache backends, as in the reference: ``backend="slots"`` (the
+default; every ported family: dense, SSM and hybrid; one contiguous cache
+row per slot) and ``backend="paged"`` (dense family; prefix cache, page
+pool).
 
-Not ported in this slice (``NotImplementedError`` naming the ROADMAP
-item): speculative decoding (``spec_tokens > 0``), swap preemption
-(``preempt_swap``) and tensor-parallel ``mesh``.
+Not ported: the tensor-parallel ``mesh`` (``NotImplementedError`` naming
+the ROADMAP item).
 """
 from __future__ import annotations
 
@@ -47,8 +58,8 @@ import numpy as np
 
 from repro_torch.api.schemas import StreamDelta
 from repro_torch.models import LM
-from repro_torch.serving.backends import (PagedBackend, PrefillTask,
-                                          SlotBackend)
+from repro_torch.serving.backends import (ATTENTION_FAMILIES, PagedBackend,
+                                          PrefillTask, SlotBackend)
 from repro_torch.serving.request import (InferenceRequest, RequestMetrics,
                                          RequestOutput)
 from repro_torch.serving.sampler import (SEED_MOD, sample_token,
@@ -65,7 +76,7 @@ class _RealClock:
 class EngineConfig:
     max_slots: int = 8
     max_seq_len: int = 512
-    backend: str = "paged"            # paged | slots
+    backend: str = "slots"            # slots | paged
     page_size: int = 64
     num_pages: int | None = None
     use_kernel: bool = False
@@ -83,13 +94,15 @@ class EngineConfig:
     # decode steps per host sync in the fused path (K); falls back to 1
     # while prefills are in flight or the batch composition changed
     decode_steps_per_sync: int = 1
-    # speculative decoding: not ported yet, must stay 0
+    # speculative decoding: draft tokens proposed per round (0 = off); needs
+    # a draft model passed to the engine
     spec_tokens: int = 0
     # 'fcfs', 'priority', 'edf', or a SchedulingPolicy instance
     scheduling_policy: object = "fcfs"
     # allow the policy to evict running lower-urgency sequences
     enable_preemption: bool = False
-    # swap-based restore: not ported yet, must stay False
+    # restore preempted sequences from a host KV copy (swap-out/in) instead
+    # of recompute-via-prefix-cache (paged backend only)
     preempt_swap: bool = False
     # per-class in-flight token budgets for the priority policy
     qos_token_budgets: dict | None = None
@@ -101,8 +114,15 @@ class _Running:
     metrics: RequestMetrics
     output_tokens: list = field(default_factory=list)
     delta_idx: int = 0                      # next StreamDelta frame index
-    # True while a restore prefill re-ingests the emitted stream
+    draft_task: PrefillTask | None = None   # speculative draft-cache prefill
+    # emitted-stream positions the draft cache holds valid KV for; falls
+    # behind cache_len whenever non-speculative rounds run (chunked-prefill
+    # interleave, headroom fallback) and is caught up before proposing
+    draft_len: int = 0
+    # preemption state: True while a restore prefill re-ingests the emitted
+    # stream; swap_blob holds the host KV copy on the swap path
     restoring: bool = False
+    swap_blob: dict | None = None
 
     @property
     def last_token(self) -> int:
@@ -151,18 +171,14 @@ class _SlotStates:
 
 class ContinuousBatchingEngine:
     def __init__(self, model: LM, params, cfg: EngineConfig | None = None,
-                 clock=None, device=None):
-        """``device``: where the backend keeps its pools; default the CUDA
-        device (RuntimeError without a card). ``params`` must live there."""
+                 clock=None, *, draft_model: LM | None = None,
+                 draft_params=None, device=None):
+        """``device``: where the backends keep their caches; default the
+        CUDA device (RuntimeError without a card). ``params`` (and
+        ``draft_params``, for speculative decoding) must live there."""
         self.model = model
         self.cfg = cfg or EngineConfig()
         self.clock = clock or _RealClock()
-        if self.cfg.spec_tokens > 0:
-            raise NotImplementedError("speculative decoding is not ported "
-                                      "yet (ROADMAP Queue 1 item 7)")
-        if self.cfg.preempt_swap:
-            raise NotImplementedError("swap preemption is not ported yet "
-                                      "(ROADMAP Queue 1 item 7)")
         if self.cfg.mesh is not None:
             raise NotImplementedError("tensor-parallel meshes are not ported "
                                       "yet (ROADMAP Queue 1 item 11)")
@@ -180,6 +196,35 @@ class ContinuousBatchingEngine:
                 model, params, max_slots=self.cfg.max_slots,
                 max_len=self.cfg.max_seq_len, use_kernel=self.cfg.use_kernel,
                 device=device)
+        self.draft_backend = None
+        if self.cfg.spec_tokens > 0:
+            if draft_model is None:
+                raise ValueError("spec_tokens > 0 requires a draft model")
+            if not self.cfg.fused_decode:
+                raise ValueError("speculative decoding requires fused_decode")
+            if not self.backend.supports_spec_decode \
+                    or draft_model.cfg.family not in ATTENTION_FAMILIES:
+                raise ValueError("speculative decoding requires attention-"
+                                 "family target and draft models")
+            if draft_model.cfg.vocab_size != model.cfg.vocab_size:
+                raise ValueError("draft and target must share a vocabulary")
+            # the draft keeps its KV beside the target's in a mirror backend
+            # of the same kind (no prefix cache: draft pages are private and
+            # rolled back every round)
+            if self.cfg.backend == "paged":
+                self.draft_backend = PagedBackend(
+                    draft_model, draft_params, max_slots=self.cfg.max_slots,
+                    max_len=self.cfg.max_seq_len,
+                    page_size=self.cfg.page_size,
+                    num_pages=self.cfg.num_pages,
+                    use_kernel=self.cfg.use_kernel, device=device)
+            else:
+                self.draft_backend = SlotBackend(
+                    draft_model, draft_params, max_slots=self.cfg.max_slots,
+                    max_len=self.cfg.max_seq_len,
+                    use_kernel=self.cfg.use_kernel, device=device)
+        if self.cfg.preempt_swap and self.cfg.backend != "paged":
+            raise ValueError("preempt_swap requires backend='paged'")
         kwargs = {}
         if self.cfg.scheduling_policy == "priority" \
                 and self.cfg.qos_token_budgets:
@@ -199,9 +244,11 @@ class ContinuousBatchingEngine:
         self.slots = _SlotStates(self.cfg.max_slots)
         self.stats = {"prefill_tokens": 0, "cached_prompt_tokens": 0,
                       "prefill_chunks": 0, "decode_tokens": 0, "steps": 0,
-                      "decode_syncs": 0, "finished": 0,
-                      "preemptions": 0, "restores": 0,
-                      "restore_cached_tokens": 0}
+                      "decode_syncs": 0, "finished": 0, "aborted": 0,
+                      "spec_rounds": 0, "spec_proposed": 0,
+                      "spec_accepted": 0, "preemptions": 0, "restores": 0,
+                      "restore_cached_tokens": 0, "swap_outs": 0,
+                      "swap_ins": 0}
 
     # -- queue management -------------------------------------------------------
     def add_request(self, req: InferenceRequest, on_delta=None):
@@ -215,8 +262,73 @@ class ContinuousBatchingEngine:
             self._delta_subs[req.request_id] = on_delta
         self.policy.add(req)
 
+    def resume_request(self, req: InferenceRequest, generated_tokens,
+                       on_delta=None):
+        """Cross-engine failover resume: admit ``req`` with
+        ``generated_tokens`` already produced (and streamed) by an engine
+        that died. The preemption-restore path, verbatim: prompt +
+        generated is re-ingested by prefill, sampling resumes at ``n_gen =
+        len(generated)`` and stream frames continue at that offset, so the
+        stitched output is token-identical to an uninterrupted run."""
+        if not generated_tokens:
+            return self.add_request(req, on_delta)
+        m = RequestMetrics(arrival_time=req.arrival_time or self.clock.now(),
+                           queued_time=self.clock.now())
+        req._metrics = m
+        if on_delta is not None:
+            self._delta_subs[req.request_id] = on_delta
+        run = _Running(req=req, metrics=m,
+                       output_tokens=list(generated_tokens))
+        self.stats["resumed_tokens"] = \
+            self.stats.get("resumed_tokens", 0) + len(generated_tokens)
+        self._preempted[req.request_id] = run
+        self.policy.add(req)
+
+    def abort(self, request_id: str) -> bool:
+        """Drop a request wherever it is (queued, a preempted victim, mid-
+        prefill or running), freeing its slot and pages. Returns False if
+        the engine does not hold it."""
+        self._delta_subs.pop(request_id, None)
+        req = self.policy.remove(request_id)
+        if req is not None:
+            # a queued preempted victim also drops its saved state
+            self._preempted.pop(request_id, None)
+            self.stats["aborted"] += 1
+            return True
+        for pool in (self.prefilling, self.running):
+            if request_id in pool:
+                entry = pool.pop(request_id)
+                run = entry[0] if isinstance(entry, tuple) else entry
+                self._release_slot(request_id)
+                self.policy.on_released(run.req)
+                self.stats["aborted"] += 1
+                return True
+        return False
+
     def has_work(self) -> bool:
         return bool(len(self.policy) or self.prefilling or self.running)
+
+    @property
+    def num_running(self) -> int:
+        return len(self.running)
+
+    @property
+    def num_waiting(self) -> int:
+        return len(self.policy)
+
+    @property
+    def waiting(self) -> list:
+        """Queued requests in the policy's admission order (read-only)."""
+        return self.policy.snapshot()
+
+    def saturated(self) -> bool:
+        """No free capacity and a queue is forming (autoscaler signal)."""
+        if not len(self.policy):
+            return False
+        head = self.policy.peek()
+        if head is None:        # queue non-empty but over a class budget
+            return True
+        return not self._can_admit(self._admit_len(head))
 
     def _admit_len(self, req: InferenceRequest) -> int:
         """Tokens the admission prefill must cover: the prompt, or -- for a
@@ -228,8 +340,10 @@ class ContinuousBatchingEngine:
         return len(req.prompt_tokens) + len(run.output_tokens) - 1
 
     def _can_admit(self, n_prompt: int) -> bool:
-        """With preemption on, an admission must also leave enough free
-        pages for the decode appends already due this step."""
+        """Admission needs capacity in the target backend and, when
+        speculating, in the draft's mirror. With preemption on, an
+        admission must also leave enough free pages for the decode appends
+        already due this step."""
         if not self.backend.can_admit(n_prompt):
             return False
         if self.cfg.enable_preemption:
@@ -237,7 +351,8 @@ class ContinuousBatchingEngine:
             if kv is not None and kv.pages_needed(n_prompt + 1) \
                     + self._appends_due() > kv.free_pages:
                 return False
-        return True
+        return self.draft_backend is None \
+            or self.draft_backend.can_admit(n_prompt)
 
     def _appends_due(self) -> int:
         """Pages the next decode step must claim for its KV appends (0 for
@@ -254,18 +369,28 @@ class ContinuousBatchingEngine:
         backend)."""
         return self.backend.cache_stats()
 
+    def spec_acceptance_rate(self) -> float:
+        """Fraction of proposed draft tokens the target accepted."""
+        p = self.stats["spec_proposed"]
+        return self.stats["spec_accepted"] / p if p else 0.0
+
     # -- preemption ---------------------------------------------------------------
     def preempt(self, request_id: str) -> bool:
         """Evict a RUNNING sequence: publish its computed pages to the
-        prefix cache, free its slot/pages, and requeue it for a later
-        restore. Returns False if the request is not currently running."""
+        prefix cache (or swap its KV to the host), free its slot/pages, and
+        requeue it for a later restore. Returns False if the request is not
+        currently running."""
         run = self.running.pop(request_id, None)
         if run is None:
             return False
-        stream = run.req.prompt_tokens + run.output_tokens
-        # register the victim's full pages in the content index so the
-        # restore prefill content-matches them out of the LRU
-        self.backend.publish(request_id, stream[:run.cache_len])
+        if self.cfg.preempt_swap:
+            run.swap_blob = self.backend.swap_out(request_id)
+            self.stats["swap_outs"] += 1
+        else:
+            # register the victim's full pages in the content index so the
+            # restore prefill content-matches them out of the LRU
+            stream = run.req.prompt_tokens + run.output_tokens
+            self.backend.publish(request_id, stream[:run.cache_len])
         self._release_slot(request_id)
         self.policy.on_released(run.req)
         run.metrics.preemptions += 1
@@ -336,7 +461,11 @@ class ContinuousBatchingEngine:
         if self.running:
             by_slot = {self.backend.slot(rid): run
                        for rid, run in self.running.items()}
-            if self.cfg.fused_decode:
+            if self.draft_backend is not None and not self.prefilling:
+                # speculative round; while chunked prefill interleaves, the
+                # plain fused path (K = 1) keeps time-between-tokens bounded
+                self._decode_spec(by_slot, finished)
+            elif self.cfg.fused_decode and self.backend.supports_fused_decode:
                 self._decode_fused(by_slot, finished)
             else:
                 self._decode_legacy(by_slot, finished)
@@ -392,6 +521,75 @@ class ContinuousBatchingEngine:
             if f:
                 finished.append(f)
 
+    def _draft_state(self) -> dict:
+        """Per-slot state for the draft's proposal loop: the target's
+        sampling params and seed fold (a proposal is the token the target
+        would sample wherever the logits agree), but no stop token and no
+        generation limit: the target's verdict finishes sequences."""
+        st = self.slots
+        return dict(st.host_state(), stop_tok=np.full_like(st.stop_tok, -1),
+                    gen_limit=np.full_like(st.gen_limit,
+                                           np.iinfo(np.int32).max))
+
+    def _decode_spec(self, by_slot: dict, finished: list):
+        """One draft-and-verify round: the draft's fused loop proposes k
+        tokens per slot (k+1 steps, so the last proposal's KV is written
+        too), ONE target forward verifies all k+1 positions on the device,
+        and both caches truncate to the accepted prefix."""
+        st = self.slots
+        k = self.cfg.spec_tokens
+        lens_by_seq: dict[str, int] = {}
+        for run in by_slot.values():
+            lens_by_seq[run.req.request_id] = run.cache_len
+            # the verify block writes positions cache_len..cache_len+k
+            k = min(k, self.cfg.max_seq_len - 1 - run.cache_len)
+        k = min(k, self.backend.spec_headroom(max(k, 0)))
+        if k < 1:          # no room to speculate (pool tight / seqs at cap)
+            return self._decode_fused(by_slot, finished)
+        # resync the draft cache: non-speculative rounds advance the emitted
+        # stream without it, so it first ingests the tokens it missed ...
+        for run in by_slot.values():
+            if run.draft_len < run.cache_len:
+                stream = run.req.prompt_tokens + run.output_tokens
+                self.draft_backend.spec_catch_up(
+                    run.req.request_id, stream[:run.cache_len],
+                    run.draft_len)
+                run.draft_len = run.cache_len
+        # ... then truncates to the previous round's accepted prefix and
+        # proposes: k+1 fused steps emit k usable proposals and leave the
+        # k-th proposal's KV written for the all-accepted case
+        self.draft_backend.reset_lens(lens_by_seq)
+        draft_toks, _, _ = self.draft_backend.fused_decode(
+            k + 1, self._draft_state())
+        k_used = min(k, draft_toks.shape[0] - 1)   # draft pool may clamp
+        draft = draft_toks[:k_used].T              # (max_slots, k_used)
+        out, produced, done = self.backend.spec_verify(
+            draft, st.host_state() if st.dirty else None)
+        st.dirty = False
+        self.stats["decode_syncs"] += 1
+        self.stats["spec_rounds"] += 1
+        for s, run in by_slot.items():
+            p = int(produced[s])
+            self.stats["spec_proposed"] += k_used
+            self.stats["spec_accepted"] += max(p - 1, 0)
+            new = [int(out[j, s]) for j in range(p)]
+            run.output_tokens.extend(new)
+            self._emit_delta(run, new)
+            st.tokens[s] = run.last_token
+            st.n_gen[s] += p
+            # the proposal loop wrote KV for exactly the accepted prefix
+            # (plus rejected rows past the rolled-back length)
+            run.draft_len = run.cache_len
+            self.stats["decode_tokens"] += p
+            f = self._maybe_finish(run)
+            if (f is not None) != bool(done[s]):
+                raise RuntimeError(
+                    f"spec decode divergence for {run.req.request_id}: "
+                    f"device done={bool(done[s])}, host finish="
+                    f"{f.finish_reason if f else None}")
+            if f:
+                finished.append(f)
+
     def run_to_completion(self) -> list[RequestOutput]:
         outs = []
         while self.has_work():
@@ -407,18 +605,38 @@ class ContinuousBatchingEngine:
             return self._admit_restore(run)
         run = _Running(req=req, metrics=req._metrics)
         task = self.backend.start_prefill(req.request_id, req.prompt_tokens)
+        if self.draft_backend is not None:
+            # reserve the draft's slot/pages NOW so both backends see the
+            # same admit/free order (their slot indices stay equal); the
+            # draft's prompt is computed one-shot when the target's prefill
+            # completes
+            run.draft_task = self.draft_backend.start_prefill(
+                req.request_id, req.prompt_tokens)
         run.metrics.cached_prompt_tokens = task.cached_tokens
         self.stats["cached_prompt_tokens"] += task.cached_tokens
         return run, task
 
-    def _admit_restore(self, run: _Running) -> tuple[_Running, PrefillTask]:
-        """Re-admit a preempted victim: a prefill of the emitted stream
-        minus its last token, whose leading pages usually content-match
-        what the victim published on eviction."""
+    def _admit_restore(self, run: _Running) \
+            -> tuple[_Running, PrefillTask | None]:
+        """Re-admit a preempted victim. Swap path: upload the saved host KV
+        and rejoin the decode batch at once (no task, no recompute).
+        Recompute path: a prefill of the emitted stream minus its last
+        token, whose leading pages usually content-match what the victim
+        published on eviction."""
         rid = run.req.request_id
         run.restoring = True
         hist = (run.req.prompt_tokens + run.output_tokens)[:-1]
+        if run.swap_blob is not None:
+            self.backend.swap_in(rid, len(hist), run.swap_blob)
+            run.swap_blob = None
+            self.stats["swap_ins"] += 1
+            if self.draft_backend is not None:
+                run.draft_task = self.draft_backend.start_prefill(rid, hist)
+            self._finish_restore(run)
+            return run, None
         task = self.backend.start_prefill(rid, hist)
+        if self.draft_backend is not None:
+            run.draft_task = self.draft_backend.start_prefill(rid, hist)
         run.metrics.restore_cached_tokens += task.cached_tokens
         self.stats["restore_cached_tokens"] += task.cached_tokens
         return run, task
@@ -440,6 +658,8 @@ class ContinuousBatchingEngine:
                 break
             run, task = self._admit()
             admitted += 1
+            if task is None:                  # swap-in restore: no prefill
+                continue
             logits, n = self.backend.prefill_chunk(task, None)
             self._account_chunk(run, n)
             self._finish_ingest(run, logits, finished)
@@ -465,6 +685,8 @@ class ContinuousBatchingEngine:
                 break
             run, task = self._admit()
             admitted += 1
+            if task is None:                  # swap-in restore: no prefill
+                continue
             logits, n = self.backend.prefill_chunk(task, left)
             left -= n
             self._account_chunk(run, n)
@@ -489,16 +711,34 @@ class ContinuousBatchingEngine:
         if f:
             finished.append(f)
         else:
+            if run.draft_task is not None:
+                # the draft's KV for the whole prompt in one shot (its
+                # logits stay on the device, unused)
+                self.draft_backend.prefill_chunk(run.draft_task, None)
+                run.draft_len = len(run.req.prompt_tokens)
+                self._check_draft_slot(run.req.request_id)
             self._activate_slot(run)
 
     def _finish_restore(self, run: _Running):
-        """A preempted victim's KV is whole again: rejoin the decode batch
-        with the SAME sampling state (``n_gen`` picks up where it left off,
-        so seeds fold identically). No token is sampled here."""
+        """A preempted victim's KV is whole again (swap-in or restore
+        prefill): rejoin the decode batch with the SAME sampling state
+        (``n_gen`` picks up where it left off, so seeds fold identically).
+        No token is sampled here."""
+        rid = run.req.request_id
         run.restoring = False
-        self.running[run.req.request_id] = run
+        self.running[rid] = run
         self.stats["restores"] += 1
+        if run.draft_task is not None:
+            self.draft_backend.prefill_chunk(run.draft_task, None)
+            run.draft_len = run.cache_len
+            self._check_draft_slot(rid)
         self._activate_slot(run)
+
+    def _check_draft_slot(self, request_id: str) -> None:
+        if self.draft_backend.slot(request_id) != self.backend.slot(
+                request_id):
+            raise RuntimeError(f"{request_id}: draft and target slot "
+                               f"assignment diverged")
 
     # -- slot state ---------------------------------------------------------------
     def _activate_slot(self, run: _Running):
@@ -526,6 +766,8 @@ class ContinuousBatchingEngine:
         self.slots.active[s] = False
         self.slots.dirty = True
         self.backend.free(request_id)
+        if self.draft_backend is not None:
+            self.draft_backend.free(request_id)
 
     # -- helpers ------------------------------------------------------------------
     def _sample_one(self, req, logits, step) -> int:

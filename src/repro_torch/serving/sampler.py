@@ -140,3 +140,45 @@ def sample_token(logits, temperature, top_p, seed):
     """One sequence's first token from device-resident logits (V,); only
     the sampled id needs to cross to the host."""
     return _sample_one(logits, float(temperature), float(top_p), int(seed))
+
+
+# -- speculative decoding: acceptance test + residual resampling -------------
+# The sampler is deterministic given (seed_base, n_gen): position i of a
+# sequence always samples the same token from the same logits. The target's
+# distribution at each position is then a point mass on that seeded sample,
+# so accept-with-probability-min(1, p/q) collapses to an exact-match test
+# and the residual resample at the first mismatch is the target's own
+# sample. Speculative streams are token-identical to non-speculative
+# decoding for greedy and seeded top-p alike.
+
+def spec_targets(logits, temps, top_ps, seed_base, n_gen):
+    """Seeded target samples for a block of verify positions.
+
+    logits: (B, T, V) -- position j holds the target logits after feeding
+    verify token j; temps/top_ps: (B,); seed_base: (B,) uint32-valued;
+    n_gen: (B,) tokens generated so far. Position j folds seed
+    ``seed_base + n_gen + j`` (wrapping at 32 bits, as :func:`fold_seeds`),
+    the seed the non-speculative loop folds when emitting that token.
+    Returns (B, T) int32."""
+    B, T, V = logits.shape
+    n2 = n_gen.long()[:, None] + torch.arange(T, device=logits.device)
+    seeds = fold_seeds(seed_base.repeat_interleave(T), n2.reshape(-1))
+    out = sample_from_logits(logits.reshape(B * T, V),
+                             temps.repeat_interleave(T),
+                             top_ps.repeat_interleave(T), seeds)
+    return out.reshape(B, T)
+
+
+def spec_accept(targets, draft):
+    """Acceptance test. targets: (B, k+1) seeded target samples; draft:
+    (B, k) proposals. Returns ``(emit (B, k+1) bool, n_emit (B,) int32)``:
+    position 0 (the guaranteed target token) is always emitted, position
+    j > 0 iff every draft token before it matched; ``n_emit = 1 +
+    accepted``. The token emitted at the first mismatch is ``targets``
+    there -- the residual resample."""
+    match = (targets[:, :-1] == draft).to(torch.int32)
+    prefix = torch.cumprod(match, dim=1)
+    first = torch.ones((targets.shape[0], 1), dtype=torch.int32,
+                       device=targets.device)
+    emit = torch.cat([first, prefix], dim=1).bool()
+    return emit, emit.sum(dim=1).to(torch.int32)

@@ -10,6 +10,7 @@ version. Greedy and seeded top-p must both be token-identical: the port's
 sampler reproduces jax's PRNG bit for bit.
 """
 import copy
+import dataclasses
 
 import jax
 import numpy as np
@@ -174,14 +175,62 @@ def test_engine_token_identical_to_jax(variant, llama, port_llama,
         assert teng.cache_stats()["hit_tokens"] > 0
 
 
-@pytest.mark.parametrize("overrides", [dict(backend="slots", spec_tokens=2),
-                                       dict(spec_tokens=2),
-                                       dict(preempt_swap=True),
-                                       dict(mesh=object())],
-                         ids=["slots", "spec", "swap", "mesh"])
+@pytest.mark.parametrize("overrides", [dict(mesh=object())], ids=["mesh"])
 def test_unported_engine_settings_name_their_roadmap_item(port_llama,
                                                           overrides):
     tmodel, tparams = port_llama
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ContinuousBatchingEngine(tmodel, tparams, EngineConfig(**overrides),
                                  device="cpu")
+
+
+def test_engine_config_defaults_match_jax():
+    from repro.serving.engine import EngineConfig as JaxEngineConfig
+    names = [f.name for f in dataclasses.fields(JaxEngineConfig)]
+    assert [f.name for f in dataclasses.fields(EngineConfig)] == names
+    assert dataclasses.asdict(EngineConfig()) == \
+        dataclasses.asdict(JaxEngineConfig())
+
+
+# each config the reference refuses: (engine overrides, target, draft)
+REFUSED = {
+    "spec-without-draft": (dict(spec_tokens=4), "llama", None),
+    "spec-per-step-decode": (dict(spec_tokens=4, fused_decode=False),
+                             "llama", "llama"),
+    "spec-ssm-target": (dict(spec_tokens=4), "mamba", "llama"),
+    "spec-ssm-draft": (dict(spec_tokens=4), "llama", "mamba"),
+    "draft-other-vocab": (dict(spec_tokens=4), "llama", "llama-wide-vocab"),
+    "swap-on-slots": (dict(preempt_swap=True), "llama", None),
+}
+
+
+@pytest.mark.parametrize("case", list(REFUSED))
+def test_refused_configs_raise_the_references_error(case, lm_factory):
+    """The port refuses each engine config the reference refuses, with the
+    same ValueError (default backend: slots)."""
+    from repro.serving.engine import (ContinuousBatchingEngine as JaxEngine,
+                                      EngineConfig as JaxEngineConfig)
+    overrides, target, draft = REFUSED[case]
+    arch = {"llama": ("llama3.2-3b", {}), "mamba": ("mamba2-130m", {}),
+            "llama-wide-vocab": ("llama3.2-3b", {"vocab_size": 512})}
+
+    def build(name):
+        if name is None:
+            return None, None, None
+        arch_name, extra = arch[name]
+        jcfg, jmodel, jparams = lm_factory(arch_name, **extra)
+        tcfg = dataclasses.replace(reduced(REGISTRY[arch_name]), **extra)
+        return (jmodel, jparams), make_model(tcfg), params_from_jax_numpy(
+            jax.tree.map(np.asarray, jparams), tcfg, "cpu")
+
+    (jm, jp), tm, tp = build(target)
+    jdraft, dm, dp = build(draft)
+    jdm, jdp = jdraft if jdraft is not None else (None, None)
+    with pytest.raises(ValueError) as want:
+        JaxEngine(jm, jp, JaxEngineConfig(**overrides), draft_model=jdm,
+                  draft_params=jdp)
+    with pytest.raises(ValueError) as got:
+        ContinuousBatchingEngine(tm, tp, EngineConfig(**overrides),
+                                 draft_model=dm, draft_params=dp,
+                                 device="cpu")
+    assert str(got.value) == str(want.value)

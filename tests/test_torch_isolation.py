@@ -82,7 +82,8 @@ def test_entry_points_refuse_to_fall_back_to_cpu(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         SlotBackend(model, params, max_slots=2, max_len=64)
     # naming the CPU is the one way onto it
-    eng = ContinuousBatchingEngine(model, params, EngineConfig(), device="cpu")
+    eng = ContinuousBatchingEngine(model, params,
+                                   EngineConfig(backend="paged"), device="cpu")
     assert eng.backend.pools["k"].device.type == "cpu"
 
 
