@@ -13,7 +13,10 @@ package. Phases, each of which raises on a failed check (exit code 1):
 2. Kernel checks: every kernel on the engines' paths against its plain
    PyTorch version on the card, at the main-path shapes of full-width
    llama3.2-3b (paged attention kernels) and zamba2-2.7b / mamba2-130m
-   (the SSD scan, dense flash attention) and at edge geometries -- for
+   (the SSD scan, dense flash attention), at phase 6's shapes
+   (phi3.5-moe's and llava-next-34b's grouping in both paged kernels;
+   hubert-xlarge's non-causal (8, 512, 16, 80) batch in the flash kernel,
+   timed beside SDPA and its bound) and at edge geometries -- for
    the split-K paged decode kernels also at the edges of its splits, its
    launch geometry printed, its device time at two other split sizes and
    the device time of one PyTorch sum over the same K/V bytes; for the
@@ -63,13 +66,42 @@ package. Phases, each of which raises on a failed check (exit code 1):
    catch-up must run); the slot engine speculating (``flash_attention``
    launched); swap preemption (one swap out and in, the request finishes
    at its length) and a byte-exact swap round trip at backend level.
-6. A ``{"kernels": [...]}`` line, the nvidia-smi line, and last
+6. The moe, vlm and audio families and the serving entry point:
+   a. phi3.5-moe at full width, cut to 16 of its 32 layers (the bf16
+      weights of all 32 would leave about 1 GB of the card): 8 requests
+      sharing a 1024-token prefix through ``offline.run_batch`` on the
+      paged engine (phase-3 settings, 32 new tokens), 2 on the per-step
+      path, 4 on the slot engine, each kernel's launches checked against
+      layers x chunks / steps / prompts; a traced decode window (no device
+      copy of an expert stack, the expert bytes read a step against the
+      step's device time) and a traced 512-token prefill chunk; then a
+      teacher-forced kernel-vs-plain comparison (a 1500-token prompt and
+      8 decode steps): free runs, reported with the share of (token,
+      layer) routing decisions that flip between the tiers and the
+      probability margin at each flip, and the kernel tier routed by the
+      plain tier's decisions, held to LOGITS_TOL (with a random router in
+      bf16 a flip within rounding changes the hidden state and flips
+      more downstream, so free-running logits measure that cascade).
+   b. llava-next-34b at full width, cut to 4 of its 60 layers: 4 requests
+      on the paged engine, launches checked; ``LM.prefill`` of seeded
+      (2, 1024, 7168) embeddings, kernel tier against plain tier.
+   c. hubert-xlarge at full width and depth: ``EmbeddingEngine`` on 8
+      frame sequences of 100..512 frames padded to 512 (48 non-causal
+      ``flash_attention`` launches a batch, checked), its embeddings
+      against the plain tier's, a batch's host-clock and device time.
+   d. ``python -m repro_torch.launch.serve --arch llama3.2-3b --full
+      --requests 8 --max-tokens 16 --stream`` as a subprocess: exit 0,
+      with its own stream/output check.
+7. A ``{"kernels": [...]}`` line, the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
+import math
+import os
 import re
 import shutil
 import statistics
@@ -282,6 +314,12 @@ def run_kernel_checks(torch, dev):
              lens=[640, 255], tails=[4, 2], dtype=f32,
              label="D=64 G=4 over several splits, f32"),
     ]
+    # phase 6's geometries: phi3.5-moe (32 query over 8 kv heads, G = 4)
+    # and llava-next-34b (56 over 8, G = 7) at the main decode shape
+    edges += [
+        dict(main, H=32, dtype=bf16, label="phi3.5-moe G=4, main shape"),
+        dict(main, H=56, dtype=bf16, label="llava-next-34b G=7, main shape"),
+    ]
     c = decode_case(K, dtype=bf16, **main)
     args = (c["q"], c["kp"], c["vp"], c["tables"], c["cl"])
     targs = args + (c["kt"], c["vt"], c["tl"])
@@ -417,6 +455,10 @@ def run_kernel_checks(torch, dev):
               dtype=f32), "MQA, single page, f32"),
         (dict(B=1, C=512, H=24, KH=8, D=128, page=64, PPS=64, start=1024,
               dtype=f32), "C=512 at 1024, f32"),
+        (dict(B=1, C=512, H=32, KH=8, D=128, page=64, PPS=64, start=1024,
+              dtype=bf16), "phi3.5-moe G=4: C=512 at 1024, bf16"),
+        (dict(B=1, C=512, H=56, KH=8, D=128, page=64, PPS=64, start=1024,
+              dtype=bf16), "llava-next-34b G=7: C=512 at 1024, bf16"),
     ]
     for kw, label in pcases:
         a = prefill_case(**kw)
@@ -644,14 +686,13 @@ def ssd_sass():
     return out
 
 
-def flash_bound(B, S, H, KH, D, window, seq_k, elem):
-    """(least ms, by what, operations) of causal dense attention: q, k, v
-    and the output once, or 4 * D flops for every visible (query, key)
-    pair."""
+def flash_bound(B, S, H, KH, D, window, seq_k, elem, causal=True):
+    """(least ms, by what, operations) of dense attention: q, k, v and the
+    output once, or 4 * D flops for every visible (query, key) pair."""
     pairs = 0
     for i in range(S):
         lo = max(0, i - window + 1) if window else 0
-        pairs += max(0, min(i + 1, seq_k) - lo)
+        pairs += max(0, min(i + 1 if causal else seq_k, seq_k) - lo)
     flops = pairs * B * H * 4 * D
     nbytes = 2 * B * S * H * D * elem + 2 * B * S * KH * D * elem
     t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
@@ -811,6 +852,20 @@ def run_hybrid_kernel_checks(torch, dev):
                     lambda: chunked_attention(*fm),
                     lambda: F.scaled_dot_product_attention(
                         qt, kt, vt, is_causal=True)))
+    # -- hubert-xlarge's encoder attention (phase 6): non-causal, G = 1,
+    # D = 80, a padded batch of 8 sequences of 512 frames --
+    hm = flash_case(8, 512, 16, 16, 80, bf16)
+    err_h = compare("flash_attention",
+                    flash_attention(*hm, causal=False),
+                    attention_ref(*hm, causal=False), bf16,
+                    "hubert (8, 512, 16, 80) not causal, bf16")
+    ht = [t.transpose(1, 2).contiguous() for t in hm]
+    b_h, by_h, f_h = flash_bound(8, 512, 16, 16, 80, 0, 512, 2, causal=False)
+    results["flash_attention hubert"] = dict(
+        max_abs_err=err_h, bound_ms=b_h, bound_by=by_h, flops=f_h,
+        **K.timings(lambda: flash_attention(*hm, causal=False),
+                    lambda: chunked_attention(*hm, causal=False),
+                    lambda: F.scaled_dot_product_attention(*ht)))
     torch.cuda.synchronize()
     print_times(results)
     return results
@@ -924,12 +979,15 @@ def print_breakdown(by_group, by_name, by_port, per, unit):
         print(f"    top: {us / 1e3 / per:8.3f} ms  {name[:90]}")
 
 
-def profile_decode(torch, engine, reqs, steps=2):
+def profile_decode(torch, engine, reqs, steps=2, on_trace=None):
     """A decode-only window with every request running: ``steps`` engine
     steps (each one fused call of K decode steps) timed on the host clock,
     then as many traced with torch.profiler for device time by kernel. The
     device's idle share is 1 - device busy time / the UNtraced window's
-    wall time, which keeps the tracer's own host overhead out."""
+    wall time, which keeps the tracer's own host overhead out. With
+    ``on_trace``, the trace records op shapes and ``on_trace(prof,
+    peak_rise)`` gets it and the most device memory the traced window
+    allocated above what it started with."""
     from torch.profiler import ProfilerActivity, profile
     for r in reqs:
         engine.add_request(r)
@@ -951,9 +1009,13 @@ def profile_decode(torch, engine, reqs, steps=2):
         return time.perf_counter() - t0, engine.stats["decode_tokens"] - d0
 
     wall, n_tok = window()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=on_trace is not None) as prof:
         _, n_tok2 = window()
+    if on_trace is not None:
+        on_trace(prof, torch.cuda.max_memory_allocated() - base)
     check(n_tok == n_tok2 == steps * K * len(reqs),
           f"profile: {n_tok}/{n_tok2} tokens, expected {steps * K * len(reqs)}")
     n_steps = steps * K
@@ -1798,6 +1860,522 @@ def run_spec_engine(torch, dev):
     return metrics
 
 
+# ---------------------------------------------------------------------------
+# phase 6: the moe, vlm and audio families and the serving entry point
+# ---------------------------------------------------------------------------
+
+FAMILY_ENGINE = dict(backend="paged", use_kernel=True, page_size=64,
+                     max_slots=8, max_seq_len=4096, enable_prefix_cache=True,
+                     chunked_prefill_budget=512, decode_steps_per_sync=8)
+MOE_LAYERS = 16                # of phi3.5-moe's 32: the bf16 weights fit
+VLM_LAYERS = 4                 # of llava-next-34b's 60: the phase's time
+COPY_BYTES = 100 * 2 ** 20     # a device copy this large in the decode
+#                                window would be a copy of an expert stack
+# pooled hubert embeddings, kernel tier vs plain tier: the least cosine
+EMBED_MIN_COS = 0.999
+
+
+def count_fused_steps(PagedBackend):
+    """Shadow ``PagedBackend._fused_kernel_impl`` (every engine of the
+    class) to record each call's K. Returns (list of K, original)."""
+    steps = []
+    orig = wrap(PagedBackend, "_fused_kernel_impl",
+                lambda fn, *a: (steps.append(a[-1]), fn(*a))[1])
+    return steps, orig
+
+
+def paged_launch_checks(what, launches, L, chunks, fused_steps):
+    """A paged engine's kernels launched once a layer: ``paged_flash_
+    prefill`` for every prefill chunk, ``fused_decode_attention`` for every
+    fused decode step."""
+    print(f"  {what}: launches {launches}; {chunks} prefill chunks, "
+          f"{fused_steps} fused decode steps, {L} layers")
+    check(launches["paged_flash_prefill"] == L * chunks,
+          f"{what}: paged_flash_prefill launched "
+          f"{launches['paged_flash_prefill']} times, expected {L} x "
+          f"{chunks} chunks")
+    check(launches["fused_decode_attention"] == L * fused_steps,
+          f"{what}: fused_decode_attention launched "
+          f"{launches['fused_decode_attention']} times, expected {L} x "
+          f"{fused_steps} steps")
+
+
+def check_outputs(what, outs, n, max_tokens, V):
+    check(len(outs) == n, f"{what}: {len(outs)} of {n} requests finished")
+    for o in outs:
+        check(o.finish_reason == "length"
+              and len(o.output_tokens) == max_tokens,
+              f"{what}: {o.request_id}: {o.finish_reason} after "
+              f"{len(o.output_tokens)} tokens, expected length after "
+              f"{max_tokens}")
+        check(all(0 <= t < V for t in o.output_tokens),
+              f"{what}: {o.request_id}: token id out of range")
+
+
+def routing_flips(torch, kernel, plain, k, L):
+    """(token, layer) routing decisions whose top-k expert set differs
+    between two tiers, from the router probabilities each tier recorded
+    call by call (call j is layer j % L). Returns (decisions, flips as
+    (margin, rounding) pairs, flips by layer): margin is the plain tier's
+    gap between its k-th and (k+1)-th probabilities, rounding the largest
+    difference between the tiers' probabilities of that token."""
+    check(len(kernel) == len(plain), "routing logs of unequal length")
+    n, flips, by_layer = 0, [], [0] * L
+    for j, (pk, pp) in enumerate(zip(kernel, plain)):
+        sk = torch.sort(pk, dim=-1, descending=True, stable=True)
+        sp = torch.sort(pp, dim=-1, descending=True, stable=True)
+        ik = sk.indices[:, :k].sort(dim=-1).values
+        ip = sp.indices[:, :k].sort(dim=-1).values
+        n += pk.shape[0]
+        for t in (ik != ip).any(dim=-1).nonzero()[:, 0].tolist():
+            flips.append((float(sp.values[t, k - 1] - sp.values[t, k]),
+                          float((pk[t] - pp[t]).abs().max())))
+            by_layer[j % L] += 1
+    return n, flips, by_layer
+
+
+def run_moe(torch, dev):
+    """phi3.5-moe at full width, cut to MOE_LAYERS layers: 8 requests
+    through ``offline.run_batch`` on the paged engine (phase-3 settings),
+    2 on the per-step path, 4 on the slot engine, each with its launches
+    checked; a traced decode window (no copy of an expert stack) and
+    prefill chunk; then a teacher-forced comparison of the kernel tier
+    against the plain tier, with the routing decisions that flip between
+    them."""
+    import numpy as np
+    from repro_torch.configs import REGISTRY
+    from repro_torch.kernels import _build
+    from repro_torch.models import make_model
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.serving import backends
+    from repro_torch.serving.backends import PagedBackend
+    from repro_torch.serving.engine import (ContinuousBatchingEngine,
+                                            EngineConfig)
+    from repro_torch.serving.offline import run_batch
+
+    full = REGISTRY["phi3.5-moe-42b-a6.6b"]
+    cfg = dataclasses.replace(full, num_layers=MOE_LAYERS)
+    L, V, E, k = cfg.num_layers, cfg.vocab_size, cfg.moe.num_experts, \
+        cfg.moe.top_k
+    print(f"phase 6a: {cfg.name} at full width, {L} of {full.num_layers} "
+          f"layers: d={cfg.d_model} H={cfg.num_heads}/{cfg.num_kv_heads} "
+          f"hd={cfg.head_dim} experts={E} top-{k} ff={cfg.d_ff} V={V} "
+          f"{cfg.param_dtype}")
+    t_phase = time.perf_counter()
+    model = make_model(cfg)
+    print(f"  device memory allocated before the weights "
+          f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB")
+    t0 = time.perf_counter()
+    params = model.init_params(torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    moe_p = params["layers"]["moe"]
+    expert_bytes = sum(moe_p[n].nbytes for n in ("w1", "w2", "w3"))
+    del moe_p
+    # what a decode step must read: every layer, the final norm, the head
+    step_bytes = sum(t.nbytes for t in leaves(params["layers"])) \
+        + params["final_norm"].nbytes + params["lm_head"].nbytes
+    print(f"  random weights in {time.perf_counter() - t0:.1f} s: "
+          f"{sum(t.nbytes for t in leaves(params)) / 1e9:.2f} GB, "
+          f"expert stacks {expert_bytes / 1e9:.2f} GB; device memory "
+          f"allocated {torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB")
+    metrics = {"layers": L, "expert_bytes": expert_bytes,
+               "step_read_bytes": step_bytes,
+               "weight_read_bound_ms": step_bytes / HBM_BYTES_PER_S * 1e3}
+
+    warm = ContinuousBatchingEngine(model, params,
+                                    EngineConfig(**FAMILY_ENGINE), device=dev)
+    drive(torch, warm, make_requests(2, 300, [40, 90], 9, V, seed=9,
+                                     model=cfg.name))
+    del warm
+    torch.cuda.empty_cache()
+
+    # -- main path: offline.run_batch, fused K=8, chunked prefill, prefix
+    # cache; half greedy, half seeded top-p --
+    tails = np.linspace(64, 512, 8).astype(int)
+    steps, orig = count_fused_steps(PagedBackend)
+    backends.reset_transfer_stats()
+    _build.reset_launches()
+    outs, stats = run_batch(model, params,
+                            make_requests(8, 1024, tails, 32, V, seed=0,
+                                          model=cfg.name),
+                            EngineConfig(**FAMILY_ENGINE), device=dev)
+    launches = dict(_build.LAUNCHES)
+    PagedBackend._fused_kernel_impl = orig
+    check_outputs("moe run_batch", outs, 8, 32, V)
+    check(backends.TRANSFER_STATS["decode_logits_transfers"] == 0,
+          "moe run_batch: the fused path moved logits to the host")
+    check(stats["cached_prompt_tokens"] > 0, "moe run_batch: no prefix-cache "
+          "hits")
+    paged_launch_checks("moe run_batch", launches, L, stats["prefill_chunks"],
+                        sum(steps))
+    print(f"  run_batch: {stats['output_tokens']} output tokens in "
+          f"{stats['wall_s']:.3f} s: {stats['output_tok_per_s']:.1f} "
+          f"tokens/s, {stats['req_per_s']:.2f} requests/s; prefill "
+          f"{stats['prefill_tokens']} tokens ({stats['cached_prompt_tokens']}"
+          f" from the prefix cache) in {stats['prefill_chunks']} chunks")
+    metrics["run_batch"] = {n: stats[n] for n in (
+        "wall_s", "output_tokens", "output_tok_per_s", "req_per_s",
+        "prefill_tokens", "cached_prompt_tokens", "prefill_chunks",
+        "decode_syncs")}
+    metrics["launches_main"] = launches
+    torch.cuda.empty_cache()
+
+    # -- decode window (no device copy of an expert stack) and prefill chunk
+    def no_expert_copy(prof, peak_rise):
+        big = [(e.name, e.input_shapes[0]) for e in prof.events()
+               if e.name in ("aten::copy_", "aten::clone", "aten::contiguous",
+                             "aten::_to_copy") and e.input_shapes
+               and e.input_shapes[0]
+               and 2 * math.prod(e.input_shapes[0]) >= COPY_BYTES]
+        print(f"  decode window: copies of >= {COPY_BYTES} B: {len(big)}; "
+              f"most device memory allocated above the window's start "
+              f"{peak_rise} B")
+        check(not big, f"moe decode window: device copies of an expert "
+              f"stack's size: {big[:3]}")
+        check(peak_rise < COPY_BYTES, "moe decode window: allocated "
+              f"{peak_rise} B above its start, an expert stack's size")
+        metrics["decode_window_peak_rise_bytes"] = peak_rise
+
+    metrics.update(profile_decode(
+        torch, ContinuousBatchingEngine(model, params,
+                                        EngineConfig(**FAMILY_ENGINE),
+                                        device=dev),
+        make_requests(8, 1024, tails, 64, V, seed=3, model=cfg.name),
+        on_trace=no_expert_copy))
+    dms = metrics.get("decode_step_device_ms")
+    print(f"  decode step: {step_bytes / 1e9:.2f} GB of weights to read "
+          f"({expert_bytes / 1e9:.2f} GB of experts): bound "
+          f"{metrics['weight_read_bound_ms']:.3f} ms; device "
+          + (f"{dms:.3f} ms: experts read at "
+             f"{expert_bytes / dms / 1e9:.3f} TB/s over the whole step"
+             if dms else "not measured"))
+    torch.cuda.empty_cache()
+    flops = 2 * 512 * cfg.d_model * cfg.d_ff * 3 * E * L
+    print(f"  prefill chunk: the all-expert products of 512 tokens are "
+          f"{flops / 1e12:.2f} TFLOP: {flops / BF16_FLOPS * 1e3:.3f} ms at "
+          f"the bf16 peak")
+    metrics["prefill_chunk_expert_tflop"] = flops / 1e12
+    metrics.update(profile_prefill(
+        torch, ContinuousBatchingEngine(model, params,
+                                        EngineConfig(**FAMILY_ENGINE),
+                                        device=dev),
+        make_requests(3, 0, [1536] * 3, 1, V, seed=5, model=cfg.name),
+        step=3, what="512-token chunk at 1024"))
+    torch.cuda.empty_cache()
+
+    # -- per-step path: fused_decode=False (paged_attention) --
+    eng = ContinuousBatchingEngine(
+        model, params, EngineConfig(**dict(FAMILY_ENGINE, fused_decode=False)),
+        device=dev)
+    calls = []
+    wrap(eng.backend, "decode_batch",
+         lambda fn, *a: (calls.append(1), fn(*a))[1])
+    _build.reset_launches()
+    outs2, _, _, _ = drive(torch, eng, make_requests(2, 300, [40, 90], 16, V,
+                                                     seed=1, model=cfg.name))
+    step_launches = dict(_build.LAUNCHES)
+    check_outputs("moe per-step path", outs2, 2, 16, V)
+    print(f"  per-step path: launches {step_launches}; {len(calls)} decode "
+          f"steps")
+    check(step_launches["paged_attention"] == L * len(calls),
+          f"moe per-step path: paged_attention launched "
+          f"{step_launches['paged_attention']} times, expected {L} x "
+          f"{len(calls)}")
+    del eng
+    torch.cuda.empty_cache()
+
+    # -- slot engine: one-shot prefill through flash_attention --
+    eng = ContinuousBatchingEngine(
+        model, params, EngineConfig(backend="slots", use_kernel=True,
+                                    max_slots=4, max_seq_len=2048,
+                                    decode_steps_per_sync=8), device=dev)
+    _build.reset_launches()
+    outs3, _, t_dec, n_dec = drive(torch, eng, make_requests(
+        4, 0, [300, 600, 900, 1200], 16, V, seed=2, model=cfg.name))
+    slot_launches = dict(_build.LAUNCHES)
+    check_outputs("moe slot engine", outs3, 4, 16, V)
+    print(f"  slot engine: launches {slot_launches}; decode-only steps "
+          f"{n_dec / t_dec:.1f} tokens/s")
+    check(slot_launches["flash_attention"] == L * 4,
+          f"moe slot engine: flash_attention launched "
+          f"{slot_launches['flash_attention']} times, expected {L} x 4")
+    del eng
+    torch.cuda.empty_cache()
+    metrics["launches"] = {
+        "paged_flash_prefill": launches["paged_flash_prefill"],
+        "fused_decode_attention": launches["fused_decode_attention"],
+        "paged_attention": step_launches["paged_attention"],
+        "flash_attention": slot_launches["flash_attention"]}
+
+    # -- teacher-forced: the same 1500-token prompt (512-token chunks) and
+    # the same 8 decode tokens through each tier. Free runs: each tier
+    # routes by its own router; the plain tier's own spread is its run
+    # with 256-token chunks. Forced run: the kernel tier routed by the
+    # plain tier's top-k decisions, call by call, so the two compute the
+    # same function and differ by the attention kernels' rounding alone.
+    # Every tier's router probabilities are logged call by call --
+    log = {"on": None, "force": False}
+    orig_routing = moe_mod._routing
+
+    def routing(x, p, c):
+        probs = torch.softmax(x.float() @ p["router"], dim=-1)
+        calls = log.setdefault(log["on"], [])
+        calls.append(probs.reshape(-1, E))
+        if not log["force"]:
+            return orig_routing(x, p, c)
+        ref = log["plain"][len(calls) - 1]
+        idx = moe_mod._top_k(ref, k)[1].reshape(*probs.shape[:-1], k)
+        gates = probs.gather(-1, idx)
+        gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
+        return (torch.zeros_like(probs).scatter(-1, idx, gates), gates, idx,
+                torch.zeros((), device=x.device))
+
+    moe_mod._routing = routing
+    tiers = {"plain": (False, 512), "plain256": (False, 256),
+             "kernel": (True, 512), "forced": (True, 512)}
+    bk = {n: PagedBackend(model, params, max_slots=1, max_len=2048,
+                          page_size=64, use_kernel=uk, device=dev)
+          for n, (uk, _) in tiers.items()}
+    prompt = np.random.default_rng(2).integers(2, V, size=1500).tolist()
+    lg = {}
+    for n, b in bk.items():
+        log["on"], log["force"] = n, n == "forced"
+        task = b.start_prefill("s", prompt)
+        out = None
+        while out is None:
+            out, _ = b.prefill_chunk(task, tiers[n][1])
+        lg[n] = [out.float().cpu().numpy()]
+    agree = 0
+    for _ in range(8):
+        tok = int(lg["plain"][-1].argmax())
+        for n, b in bk.items():
+            log["on"], log["force"] = n, n == "forced"
+            lg[n].append(b.decode_batch(np.array([tok]))[0])
+        agree += int(lg["kernel"][-1].argmax() == lg["plain"][-1].argmax())
+    moe_mod._routing = orig_routing
+
+    def worst(a, b):
+        return max(float(np.abs(x - y).max() / max(np.abs(y).max(), 1e-6))
+                   for x, y in zip(lg[a], lg[b]))
+
+    err, spread, forced = (worst("kernel", "plain"), worst("plain256", "plain"),
+                           worst("forced", "plain"))
+    n_route, flips, by_layer = routing_flips(torch, log["kernel"],
+                                             log["plain"], k, L)
+    _, fflips, _ = routing_flips(torch, log["forced"], log["plain"], k, L)
+    free_tol = LOGITS_TOL if not flips else max(LOGITS_TOL,
+                                                SPREAD_FACTOR * spread)
+    print(f"  teacher-forced, free runs (1500-token prompt + 8 decode "
+          f"steps): kernel vs plain logits rel_err {err:.3e}; plain tier's "
+          f"own spread (256- against 512-token chunks) {spread:.3e}; "
+          f"max({LOGITS_TOL}, {SPREAD_FACTOR} x spread) = {free_tol:.3e} "
+          f"{'met' if err <= free_tol else 'NOT met'}; greedy tokens that "
+          f"match {agree}/8")
+    print(f"    routing: {len(flips)} of {n_route} (token, layer) top-{k} "
+          f"sets differ (share {len(flips) / n_route:.3e}), by layer "
+          f"{by_layer}; margins at the first flips "
+          f"{[f'{m:.2e} (rounding {r:.2e})' for m, r in flips[:8]]}")
+    print(f"  teacher-forced, kernel tier routed by the plain tier's "
+          f"decisions: logits rel_err {forced:.3e} (tolerance {LOGITS_TOL});"
+          f" {len(fflips)} decisions where its own top-{k} would differ "
+          f"(share {len(fflips) / n_route:.3e}), margins "
+          f"{[f'{m:.2e} (rounding {r:.2e})' for m, r in fflips[:8]]}")
+    check(all(m <= 2 * r for m, r in fflips), "moe teacher-forced: under "
+          "the same routing a top-k decision differs between the tiers by "
+          "more than twice their probabilities' rounding")
+    check(forced <= LOGITS_TOL, "moe teacher-forced: under the same routing "
+          "the kernel tier's logits disagree with the plain tier's")
+    metrics.update(teacher_forced_rel_err=err, plain_spread_rel_err=spread,
+                   free_run_tolerance=free_tol,
+                   forced_routing_rel_err=forced,
+                   routing_decisions=n_route, routing_flips=len(flips),
+                   routing_flips_by_layer=by_layer,
+                   routing_flip_margins=flips[:64],
+                   forced_would_flip=len(fflips),
+                   forced_would_flip_margins=fflips, greedy_match=agree / 8)
+    del bk, params
+    torch.cuda.empty_cache()
+    metrics["phase_s"] = time.perf_counter() - t_phase
+    print(f"  phase 6a in {metrics['phase_s']:.1f} s")
+    return metrics
+
+
+def leaves(tree):
+    """Every tensor of a nested dict of parameters."""
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in leaves(v)]
+    return [tree]
+
+
+def run_vlm(torch, dev):
+    """llava-next-34b at full width, cut to VLM_LAYERS layers: 4 requests
+    on the paged engine (phase-3 settings), launches checked; then
+    ``LM.prefill`` of seeded (2, 1024, d) embeddings (the stub frontend's
+    features) in the kernel tier against the plain tier."""
+    from repro_torch.configs import REGISTRY
+    from repro_torch.kernels import _build
+    from repro_torch.models import make_model
+    from repro_torch.serving.backends import PagedBackend
+    from repro_torch.serving.engine import (ContinuousBatchingEngine,
+                                            EngineConfig)
+
+    full = REGISTRY["llava-next-34b"]
+    cfg = dataclasses.replace(full, num_layers=VLM_LAYERS)
+    L, V = cfg.num_layers, cfg.vocab_size
+    print(f"phase 6b: {cfg.name} at full width, {L} of {full.num_layers} "
+          f"layers: d={cfg.d_model} H={cfg.num_heads}/{cfg.num_kv_heads} "
+          f"hd={cfg.head_dim} ff={cfg.d_ff} V={V} {cfg.param_dtype}")
+    t_phase = time.perf_counter()
+    model = make_model(cfg)
+    params = model.init_params(torch.Generator(device=dev).manual_seed(0))
+    drive(torch, ContinuousBatchingEngine(
+        model, params, EngineConfig(**FAMILY_ENGINE), device=dev),
+        make_requests(2, 300, [40, 90], 9, V, seed=9, model=cfg.name))
+    eng = ContinuousBatchingEngine(model, params,
+                                   EngineConfig(**FAMILY_ENGINE), device=dev)
+    steps, orig = count_fused_steps(PagedBackend)
+    _build.reset_launches()
+    outs, t_pf, t_dec, n_dec = drive(torch, eng, make_requests(
+        4, 512, [100, 300, 500, 700], 16, V, seed=4, model=cfg.name))
+    launches = dict(_build.LAUNCHES)
+    PagedBackend._fused_kernel_impl = orig
+    check_outputs("vlm paged engine", outs, 4, 16, V)
+    paged_launch_checks("vlm paged engine", launches, L,
+                        eng.stats["prefill_chunks"], sum(steps))
+    metrics = {"layers": L, "launches": {
+        n: launches[n] for n in ("paged_flash_prefill",
+                                 "fused_decode_attention")},
+        "prefill_tok_s": eng.stats["prefill_tokens"] / t_pf,
+        "decode_tok_s": n_dec / t_dec}
+    print(f"  paged engine: prefill {metrics['prefill_tok_s']:.1f} tokens/s, "
+          f"decode-only steps {metrics['decode_tok_s']:.1f} tokens/s")
+    del eng
+    torch.cuda.empty_cache()
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    emb = torch.randn(2, 1024, cfg.d_model, generator=g, device=dev) * 0.02
+    _build.reset_launches()
+    lk, _ = model.prefill(params, {"embeds": emb}, use_kernel=True)
+    check(_build.LAUNCHES["flash_attention"] == L,
+          f"vlm prefill: flash_attention launched "
+          f"{_build.LAUNCHES['flash_attention']} times, expected {L}")
+    lp, _ = model.prefill(params, {"embeds": emb})
+    rel, _ = rel_err(lk, lp)
+    print(f"  LM.prefill of embeddings (2, 1024, {cfg.d_model}): kernel tier "
+          f"vs plain tier logits rel_err {rel:.3e} (tolerance {LOGITS_TOL});"
+          f" greedy tokens equal "
+          f"{(lk.argmax(-1) == lp.argmax(-1)).tolist()}")
+    check(bool(torch.isfinite(lk).all()), "vlm prefill: non-finite logits")
+    check(rel <= LOGITS_TOL, "vlm prefill: kernel tier logits disagree with "
+          "the plain tier")
+    metrics["embeds_prefill_rel_err"] = rel
+    del params
+    torch.cuda.empty_cache()
+    metrics["phase_s"] = time.perf_counter() - t_phase
+    print(f"  phase 6b in {metrics['phase_s']:.1f} s")
+    return metrics
+
+
+def run_audio(torch, dev):
+    """hubert-xlarge at full width and depth: ``EmbeddingEngine`` on 8
+    seeded frame sequences of 100..512 frames padded to 512 (48
+    ``flash_attention`` launches a batch, checked), the pooled embeddings
+    of the kernel tier against the plain tier, and a batch's host-clock
+    and device time."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import REGISTRY
+    from repro_torch.kernels import _build
+    from repro_torch.models import make_model
+    from repro_torch.models.transformer import forward
+    from repro_torch.serving.embedding import EmbeddingEngine, pool
+
+    cfg = REGISTRY["hubert-xlarge"]
+    print(f"phase 6c: {cfg.name} at full width and depth: L="
+          f"{cfg.num_layers} d={cfg.d_model} H={cfg.num_heads} "
+          f"hd={cfg.head_dim} ff={cfg.d_ff} causal={cfg.causal} "
+          f"{cfg.param_dtype}")
+    t_phase = time.perf_counter()
+    model = make_model(cfg)
+    params = model.init_params(torch.Generator(device=dev).manual_seed(0))
+    eng = EmbeddingEngine(model, params, device=dev)
+    rng = np.random.default_rng(6)
+    lens = np.linspace(100, 512, 8).astype(np.int32)
+    frames = rng.standard_normal((8, 512, cfg.d_model)).astype(np.float32)
+    eng.embed(frames, lens)                                   # warm-up
+    _build.reset_launches()
+    out = eng.embed(frames, lens)
+    n_fa = _build.LAUNCHES["flash_attention"]
+    check(n_fa == cfg.num_layers, f"hubert: flash_attention launched {n_fa} "
+          f"times a batch, expected {cfg.num_layers}")
+    x = torch.from_numpy(frames).to(dev, params["embed"].dtype)
+    h, _ = forward(params, x, cfg)
+    ref = pool(h, torch.from_numpy(lens).to(dev)).float().cpu().numpy()
+    cos = float(((out * ref).sum(-1) / (np.linalg.norm(out, axis=-1)
+                                         * np.linalg.norm(ref, axis=-1)))
+                .min())
+    rel = float(np.abs(out - ref).max() / max(np.abs(ref).max(), 1e-6))
+    print(f"  embeddings (8, {cfg.d_model}), kernel tier vs plain tier: "
+          f"worst cosine {cos:.6f} (least {EMBED_MIN_COS}), rel_err "
+          f"{rel:.3e} (tolerance {LOGITS_TOL}); flash_attention launches "
+          f"a batch {n_fa}")
+    check(np.isfinite(out).all(), "hubert: non-finite embeddings")
+    check(cos >= EMBED_MIN_COS and rel <= LOGITS_TOL,
+          "hubert: kernel tier embeddings disagree with the plain tier")
+    walls = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        eng.embed(frames, lens)           # ends in a device->host copy
+        walls.append((time.perf_counter() - t0) * 1e3)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        eng.embed(frames, lens)
+    by_group, by_name, by_port, n_act = device_time(prof)
+    wall = statistics.median(walls)
+    busy = sum(by_group.values()) / 1e3 if by_group else None
+    print(f"  a batch of 8 x 512 frames: {wall:.3f} ms on the host clock "
+          f"(median of 5), device "
+          + (f"busy {busy:.3f} ms in {n_act} device activities: idle share "
+             f"{1 - busy / wall:.3f}" if busy else "time not measured"))
+    if by_group:
+        print_breakdown(by_group, by_name, by_port, 1, "")
+    metrics = {"flash_attention_launches_a_batch": n_fa,
+               "worst_cosine": cos, "rel_err": rel, "batch_wall_ms": wall,
+               "batch_device_ms": busy,
+               "device_ms_by_group": {g_: us / 1e3
+                                      for g_, us in by_group.items()},
+               "device_ms_by_port_kernel": {k_: us / 1e3
+                                            for k_, us in by_port.items()}}
+    del eng, params, h, x
+    torch.cuda.empty_cache()
+    metrics["phase_s"] = time.perf_counter() - t_phase
+    print(f"  phase 6c in {metrics['phase_s']:.1f} s")
+    return metrics
+
+
+def run_serve_entry_point():
+    """``python -m repro_torch.launch.serve`` at llama3.2-3b's full width
+    on the card, streamed: it must exit 0, and its own check that every
+    stream reassembles to the request's output must hold."""
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+           "llama3.2-3b", "--full", "--requests", "8", "--max-tokens", "16",
+           "--stream"]
+    print(f"phase 6d: the serving entry point: {' '.join(cmd[1:])}")
+    t0 = time.perf_counter()
+    out = subprocess.run(cmd, cwd=ROOT, env={**os.environ,
+                                             "PYTHONPATH": str(SRC)},
+                         capture_output=True, text=True, timeout=600)
+    secs = time.perf_counter() - t0
+    for line in (out.stdout + out.stderr).strip().splitlines()[-8:]:
+        print(f"    {line}")
+    check(out.returncode == 0, f"the serving entry point exited "
+          f"{out.returncode}")
+    check("streamed:" in out.stdout and "8 requests" in out.stdout,
+          "the serving entry point did not report 8 streamed requests")
+    print(f"  exit 0 in {secs:.1f} s")
+    return {"exit": out.returncode, "seconds": secs}
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         fail(f"{SRC / 'repro_torch'} not found: run from a checkout")
@@ -1833,6 +2411,17 @@ def main() -> int:
     launches.update(hybrid_launches)
     torch.cuda.empty_cache()
     spec_metrics = run_spec_engine(torch, dev)
+    family_metrics = {}
+    for name, run in (("moe", run_moe), ("vlm", run_vlm),
+                      ("audio", run_audio)):
+        # earlier phases' engines sit in reference cycles (wrapped methods
+        # close over their engine): free them before the next weights
+        gc.collect()
+        torch.cuda.empty_cache()
+        family_metrics[name] = run(torch, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    family_metrics["serve"] = run_serve_entry_point()
 
     replaces = {
         "paged_attention": ("src/repro_torch/csrc/paged_attention.cu",
@@ -1872,6 +2461,9 @@ def main() -> int:
                             "floors_device_ms", "sass")}
     print(json.dumps({"metrics": metrics, "hybrid_metrics": hybrid_metrics,
                       "spec_metrics": spec_metrics,
+                      "family_metrics": family_metrics,
+                      "hubert_flash_attention": timing[
+                          "flash_attention hubert"],
                       "decode_kernel": decode, "ssd_kernel": ssd_kernel,
                       "build_s": build_s}))
     print(json.dumps({"kernels": kernels}))

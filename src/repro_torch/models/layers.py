@@ -33,6 +33,24 @@ def dense_init(generator: torch.Generator, shape, scale=None,
     return (w * scale).to(dtype)
 
 
+def dense_init_stacked(generator: torch.Generator, shape, scale=None,
+                       dtype=torch.float32):
+    """:func:`dense_init` for a stack on a leading layer axis, drawn one
+    layer at a time into a preallocated tensor of ``dtype``: the float32
+    draw and its in-place scaling take one layer's room, not the whole
+    stack's (an MoE expert stack is tens of GB at serving width)."""
+    fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
+    scale = scale if scale is not None else 1.0 / math.sqrt(fan_in)
+    out = torch.empty(shape, dtype=dtype, device=generator.device)
+    for i in range(shape[0]):
+        w = torch.empty(shape[1:], dtype=torch.float32,
+                        device=generator.device)
+        torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0,
+                                    generator=generator)
+        out[i] = w.mul_(scale)
+    return out
+
+
 # ---------------------------------------------------------------------------
 # norms
 # ---------------------------------------------------------------------------

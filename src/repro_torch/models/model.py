@@ -1,11 +1,12 @@
 """Model facade (the port of ``repro/models/model.py``): init / prefill /
 decode_step / init_cache / logits, dispatching on the config's family:
 
-  dense          -> transformer stack
-  ssm | hybrid   -> mamba2 / zamba2 stack
+  dense | moe | vlm | audio -> transformer stack
+  ssm | hybrid              -> mamba2 / zamba2 stack
 
-The moe, vlm and audio families raise ``NotImplementedError`` naming the
-ROADMAP item that brings them.
+The vlm and audio frontends are stubs, as in the reference: precomputed
+features enter through ``batch["embeds"]``. Training (``train_loss``) is
+not ported yet (ROADMAP Queue 1 item 10).
 """
 from __future__ import annotations
 
@@ -16,11 +17,6 @@ from repro_torch.device import resolve_device
 from repro_torch.models import hybrid as hybrid_mod
 from repro_torch.models import transformer as tf_mod
 
-_NOT_PORTED = {
-    "moe": "ROADMAP Queue 1 item 7 (MoE in 'dense' mode, phi3.5-moe)",
-    "vlm": "ROADMAP Queue 1 item 7 (the vlm family of the LM facade)",
-    "audio": "ROADMAP Queue 1 item 13 (encoder serving surfaces)",
-}
 # context length beyond which hybrid archs switch their (shared) attention
 # to a sliding window (the reference's long-context adaptation)
 FULL_ATTN_MAX_CTX = 32_768
@@ -41,10 +37,6 @@ class LM:
     passed to every call."""
 
     def __init__(self, cfg: ModelConfig):
-        if cfg.family not in ("dense", "ssm", "hybrid"):
-            raise NotImplementedError(
-                f"family {cfg.family!r} is not ported yet: "
-                f"{_NOT_PORTED.get(cfg.family, 'see ROADMAP Queue 1')}")
         self.cfg = cfg
 
     # -- params ------------------------------------------------------------
@@ -73,17 +65,26 @@ class LM:
 
     # -- serving -----------------------------------------------------------
     def prefill(self, params, batch, *, max_len=None, last_index=None,
-                use_kernel=False):
+                moe_mode="grouped", use_kernel=False):
         """Returns (logits of position ``last_index`` (default: the last)
         (B, V) float32, cache). The sliding window follows ``max_len`` (the
-        cache's length), not the prompt's, as in the reference.
-        ``use_kernel``: the prompt's attention and SSD scans through the
-        hand-written kernels' wrappers."""
+        cache's length), not the prompt's, as in the reference. An encoder
+        returns the logits of every position (B, S, V) and no cache.
+        ``moe_mode``: the MoE mode ("grouped", the reference's default, or
+        "dense", which serving paths pass). ``use_kernel``: the prompt's
+        attention and SSD scans through the hand-written kernels'
+        wrappers."""
+        cfg = self.cfg
         x = self.embed_inputs(params, batch)
-        window = _window_for(self.cfg, max_len or x.shape[1])
-        hidden, cache = _backend(self.cfg).prefill(
-            params, x, self.cfg, max_len=max_len, window=window,
-            use_kernel=use_kernel)
+        window = _window_for(cfg, max_len or x.shape[1])
+        if cfg.is_encoder:
+            hidden, _ = tf_mod.forward(params, x, cfg, window=window,
+                                       use_kernel=use_kernel)
+            return self.logits(params, hidden), None
+        kw = {"moe_mode": moe_mode} if cfg.family == "moe" else {}
+        hidden, cache = _backend(cfg).prefill(
+            params, x, cfg, max_len=max_len, window=window,
+            use_kernel=use_kernel, **kw)
         idx = hidden.shape[1] - 1 if last_index is None else last_index
         return self.logits(params, hidden[:, idx]), cache
 

@@ -1,9 +1,13 @@
-"""Dense transformer stack (the port of ``repro/models/transformer.py``).
+"""Dense / MoE / VLM / audio-encoder transformer stack (the port of
+``repro/models/transformer.py``).
 
 Parameters keep the reference's layout: every per-layer weight is stacked
 on a leading L axis (``params["layers"]["attn"]["wq"]`` is (L, d, q_dim)),
-so a bridged JAX tree maps key for key. The layer loop is a Python loop
-over per-layer views (:func:`layer_params`) where the reference scans.
+so a bridged JAX tree maps key for key. An MoE config has
+``layers["moe"]`` (router and expert stacks) where the others have
+``layers["mlp"]``. The layer loop is a Python loop over per-layer views
+(:func:`layer_params`) where the reference scans; ``forward`` has no
+rematerialisation (the port does not train yet).
 """
 from __future__ import annotations
 
@@ -12,6 +16,7 @@ import torch
 from repro_torch.models.layers import (attention_layer, dense_init,
                                        init_attention, init_mlp, mlp_layer,
                                        rms_norm)
+from repro_torch.models.moe import init_moe, moe_ffn
 
 
 def _dtype(cfg) -> torch.dtype:
@@ -31,10 +36,14 @@ def init_params(generator: torch.Generator, cfg):
             "norm1": torch.ones((L, d), dtype=dtype, device=dev),
             "attn": init_attention(generator, cfg, dtype, L),
             "norm2": torch.ones((L, d), dtype=dtype, device=dev),
-            "mlp": init_mlp(generator, d, cfg.d_ff, cfg.num_layers, dtype, L),
         },
         "final_norm": torch.ones((d,), dtype=dtype, device=dev),
     }
+    if cfg.moe:
+        params["layers"]["moe"] = init_moe(generator, cfg, dtype, L)
+    else:
+        params["layers"]["mlp"] = init_mlp(generator, d, cfg.d_ff,
+                                           cfg.num_layers, dtype, L)
     if not cfg.tie_embeddings:
         params["lm_head"] = dense_init(generator, (d, cfg.vocab_size),
                                        dtype=dtype)
@@ -52,30 +61,55 @@ def layer_params(params, i: int):
 
 
 def _block(x, lp, cfg, positions, *, cache=None, cache_index=None,
-           window=0, return_kv=False, use_kernel=False):
-    """One transformer block. Returns (x, new_cache_or_kv)."""
+           window=0, moe_mode="grouped", return_kv=False, use_kernel=False):
+    """One transformer block. Returns (x, new_cache_or_kv, aux): ``aux``
+    is the MoE load-balance loss (0 without MoE)."""
     h, kv = attention_layer(
         rms_norm(x, lp["norm1"], cfg.norm_eps), lp["attn"], cfg,
         positions=positions, cache=cache, cache_index=cache_index,
         window=window, return_kv=return_kv, use_kernel=use_kernel)
     x = x + h
     g = rms_norm(x, lp["norm2"], cfg.norm_eps)
-    return x + mlp_layer(g, lp["mlp"]), kv
+    if cfg.moe:
+        f, aux = moe_ffn(g, lp["moe"], cfg, mode=moe_mode)
+    else:
+        f = mlp_layer(g, lp["mlp"])
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x + f, kv, aux
 
 
-def prefill(params, x, cfg, *, max_len=None, window=0, use_kernel=False):
+def forward(params, x, cfg, *, moe_mode="grouped", window=0,
+            use_kernel=False):
+    """Full-sequence forward (the encoder's path). x: (B, S, D)
+    embeddings. Returns (hidden (B,S,D), aux loss summed over layers).
+    ``use_kernel``: attention through the flash kernel's wrapper (causal
+    or not, as the config says)."""
+    B, S, _ = x.shape
+    positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(cfg.num_layers):
+        x, _, a = _block(x, layer_params(params, i), cfg, positions,
+                         window=window, moe_mode=moe_mode,
+                         use_kernel=use_kernel)
+        aux = aux + a
+    return rms_norm(x, params["final_norm"], cfg.norm_eps), aux
+
+
+def prefill(params, x, cfg, *, max_len=None, window=0, moe_mode="grouped",
+            use_kernel=False):
     """Forward that also materializes the KV cache for decode.
     x: (B, S, D) embeddings. Returns (hidden (B,S,D), cache) with cache
     k/v (L, B, KH, max_len, hd) kv-heads-major and len (B,).
+    ``moe_mode``: serving paths pass "dense" (no capacity drops).
     ``use_kernel``: attention through the flash kernel's wrapper."""
     B, S, _ = x.shape
     max_len = max_len or S
     positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
     ks, vs = [], []
     for i in range(cfg.num_layers):
-        x, (k, v) = _block(x, layer_params(params, i), cfg, positions,
-                           window=window, return_kv=True,
-                           use_kernel=use_kernel)
+        x, (k, v), _ = _block(x, layer_params(params, i), cfg, positions,
+                              window=window, moe_mode=moe_mode,
+                              return_kv=True, use_kernel=use_kernel)
         ks.append(k.transpose(1, 2))
         vs.append(v.transpose(1, 2))
     kc, vc = torch.stack(ks), torch.stack(vs)
@@ -97,9 +131,11 @@ def decode_step(params, x, cfg, cache, *, window=0):
     positions = lens[:, None].long()
     new_k, new_v = [], []
     for i in range(cfg.num_layers):
-        x, (kn, vn) = _block(x, layer_params(params, i), cfg, positions,
-                             cache={"k": cache["k"][i], "v": cache["v"][i]},
-                             cache_index=lens, window=window)
+        x, (kn, vn), _ = _block(x, layer_params(params, i), cfg, positions,
+                                cache={"k": cache["k"][i],
+                                       "v": cache["v"][i]},
+                                cache_index=lens, window=window,
+                                moe_mode="dense")
         new_k.append(kn)
         new_v.append(vn)
     _scatter_new_kv(cache["k"], torch.stack(new_k), lens)

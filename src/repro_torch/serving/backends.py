@@ -1,12 +1,17 @@
 """Engine cache backends (the port of the JAX package's
 ``repro/serving/backends.py``).
 
-SlotBackend  -- contiguous per-slot cache for every ported family (dense
-                attention, SSM, hybrid): the cache has a batch axis of
-                ``max_slots``; a prefill fills one slot's rows in place,
-                decode steps every slot.
-PagedBackend -- vLLM-style paged KV pool with block tables, for the dense
-                attention family.
+SlotBackend  -- contiguous per-slot cache for every decoder family
+                (attention -- dense, moe, vlm -- SSM, hybrid): the cache
+                has a batch axis of ``max_slots``; a prefill fills one
+                slot's rows in place, decode steps every slot.
+PagedBackend -- vLLM-style paged KV pool with block tables, for the
+                attention families.
+
+An MoE model's feed-forward runs ``moe_ffn`` in "dense" mode on every
+path (prefill, chunks, decode, verify), as in the reference: every expert
+computes every token, so no routing drop makes a stream depend on what
+else is in the batch.
 
 The paged pools are two tensors (L, num_pages, page_size, KH, hd) on the
 backend's device, updated IN PLACE (``index_put_``) where the reference
@@ -78,12 +83,13 @@ from repro_torch.kernels.paged_attention.ref import (
 from repro_torch.models import LM
 from repro_torch.models.layers import (NEG_INF, chunked_attention, mlp_layer,
                                        project_qkv, rms_norm)
+from repro_torch.models.moe import moe_ffn
 from repro_torch.models.transformer import _block, layer_params
 from repro_torch.serving.kv_cache import OutOfPages, PagedKVCache
 from repro_torch.serving.sampler import (fold_seeds, sample_from_logits,
                                          spec_accept, spec_targets)
 
-ATTENTION_FAMILIES = ("dense",)
+ATTENTION_FAMILIES = ("dense", "moe", "vlm")
 
 # -- host-transfer accounting -------------------------------------------------
 # The fused decode path's contract is that logits never cross to the host;
@@ -193,6 +199,14 @@ def _spec_accept_and_latch(st, logits, draft):
     return targets, produced, done, st
 
 
+def _ffn(g, lp, cfg):
+    """A layer's feed-forward on serving paths: MoE in "dense" mode, or
+    the SwiGLU MLP."""
+    if cfg.moe:
+        return moe_ffn(g, lp["moe"], cfg, mode="dense")[0]
+    return mlp_layer(g, lp["mlp"])
+
+
 def _chunk_layer(h, lp, cfg, positions, write_attend):
     """One transformer layer of a prefill chunk: ``write_attend(q, k, v)
     -> attn_out`` writes the chunk's KV into the cache and attends."""
@@ -202,7 +216,7 @@ def _chunk_layer(h, lp, cfg, positions, write_attend):
     a = write_attend(q, k, v)
     h = h + (a.reshape(B, S, -1) @ lp["attn"]["wo"])
     g = rms_norm(h, lp["norm2"], cfg.norm_eps)
-    return h + mlp_layer(g, lp["mlp"])
+    return h + _ffn(g, lp, cfg)
 
 
 @dataclass
@@ -225,7 +239,7 @@ class PrefillTask:
 
 class SlotBackend:
     """Contiguous cache with ``max_slots`` sequences of up to ``max_len``
-    tokens, for every ported family."""
+    tokens, for every decoder family."""
 
     def __init__(self, model: LM, params, *, max_slots: int, max_len: int,
                  use_kernel: bool = False, mesh=None, device=None):
@@ -309,7 +323,7 @@ class SlotBackend:
         toks = self._put(prompt, torch.long)[None]
         logits, one = self.model.prefill(
             self.params, {"tokens": toks}, max_len=self.max_len,
-            use_kernel=self.use_kernel)
+            moe_mode="dense", use_kernel=self.use_kernel)
         for key, val in one.items():
             if key == "len":
                 self.cache["len"][slot] = len(prompt)
@@ -492,7 +506,7 @@ class SlotBackend:
 
 
 class PagedBackend:
-    """Paged KV cache backend for the dense attention family."""
+    """Paged KV cache backend for the attention families."""
 
     def __init__(self, model: LM, params, *, max_slots: int, max_len: int,
                  page_size: int = 128, num_pages: int | None = None,
@@ -500,8 +514,8 @@ class PagedBackend:
                  mesh=None, device=None):
         cfg = model.cfg
         if cfg.family not in ATTENTION_FAMILIES:
-            raise NotImplementedError(
-                f"paged backend: family {cfg.family!r} is not ported")
+            raise ValueError("paged backend supports attention families, "
+                             f"not {cfg.family!r}")
         if mesh is not None:
             raise NotImplementedError(
                 "tensor-parallel meshes are not ported yet (ROADMAP Queue 1 "
@@ -623,7 +637,8 @@ class PagedBackend:
         h = self.model.embed_inputs(self.params, {"tokens": toks})
         positions = torch.arange(n_pages * ps, device=self.device)[None, :]
         for i, lp in enumerate(self._layers):
-            h, (k, v) = _block(h, lp, cfg, positions, return_kv=True)
+            h, (k, v), _ = _block(h, lp, cfg, positions, moe_mode="dense",
+                                  return_kv=True)
             self.pools["k"][i][table] = \
                 k[0].reshape(n_pages, ps, *k.shape[2:]).to(self.dtype)
             self.pools["v"][i][table] = \
@@ -685,7 +700,7 @@ class PagedBackend:
             a = self._attend(q[:, 0], kp, vp, tables, ctx)
             h = h + (a.reshape(B, 1, -1) @ lp["attn"]["wo"])
             g = rms_norm(h, lp["norm2"], cfg.norm_eps)
-            h = h + mlp_layer(g, lp["mlp"])
+            h = h + _ffn(g, lp, cfg)
         h = rms_norm(h, self.params["final_norm"], cfg.norm_eps)
         return self.model.logits(self.params, h[:, 0])
 
@@ -788,7 +803,7 @@ class PagedBackend:
                                       k_tails[l], v_tails[l], tail_lens)
                 h = h + (a.reshape(B, 1, -1) @ lp["attn"]["wo"])
                 g = rms_norm(h, lp["norm2"], cfg.norm_eps)
-                h = h + mlp_layer(g, lp["mlp"])
+                h = h + _ffn(g, lp, cfg)
             h = rms_norm(h, self.params["final_norm"], cfg.norm_eps)
             logits = self.model.logits(self.params, h[:, 0])
             tokens, n_gen, done, produced = _sample_and_latch(

@@ -41,9 +41,10 @@ Features, as in the reference:
   ``num_running``, ``num_waiting``, ``waiting``.
 
 Two cache backends, as in the reference: ``backend="slots"`` (the
-default; every ported family: dense, SSM and hybrid; one contiguous cache
-row per slot) and ``backend="paged"`` (dense family; prefix cache, page
-pool).
+default; every decoder family: dense, moe, vlm, SSM and hybrid; one
+contiguous cache row per slot) and ``backend="paged"`` (the attention
+families dense, moe and vlm; prefix cache, page pool). The audio family
+is an encoder: it is served by ``serving/embedding.py``, not here.
 
 Not ported: the tensor-parallel ``mesh`` (``NotImplementedError`` naming
 the ROADMAP item).

@@ -87,6 +87,35 @@ def test_entry_points_refuse_to_fall_back_to_cpu(monkeypatch):
     assert eng.backend.pools["k"].device.type == "cpu"
 
 
+def test_rules_cover_every_package_of_the_port():
+    """The walks above reach the API, data and launch modules and the
+    serving surfaces of the moe/vlm/audio slice."""
+    files = {str(p.relative_to(PORT)) for p in PORT.rglob("*.py")}
+    for f in ("api/schemas.py", "api/client.py", "api/errors.py",
+              "api/stream.py", "data/workload.py", "data/tokens.py",
+              "launch/serve.py", "models/moe.py", "serving/embedding.py",
+              "serving/offline.py"):
+        assert f in files
+
+
+def test_new_entry_points_refuse_to_fall_back_to_cpu(monkeypatch):
+    from repro_torch.launch import serve
+    from repro_torch.serving.embedding import EmbeddingEngine
+    from repro_torch.serving.offline import run_batch
+    cfg = reduced(REGISTRY["hubert-xlarge"])
+    enc = make_model(cfg)
+    params = enc.init_params(torch.Generator().manual_seed(0))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        EmbeddingEngine(enc, params)
+    dec = make_model(reduced(REGISTRY["phi3.5-moe-42b-a6.6b"]))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_batch(dec, dec.init_params(torch.Generator().manual_seed(0)), [])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--requests", "1"])
+    assert EmbeddingEngine(enc, params, device="cpu").device.type == "cpu"
+
+
 def test_chip_smoke_fails_without_a_card_or_a_checkout(tmp_path):
     lone = tmp_path / "chip_smoke.py"
     lone.write_text((REPO / "chip_smoke.py").read_text())

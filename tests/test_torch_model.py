@@ -15,7 +15,7 @@ from numpy.testing import assert_allclose
 
 from repro.models import layers as jax_layers
 from repro_torch.bridge import params_from_jax_numpy, params_to_numpy
-from repro_torch.configs import REGISTRY, get_config, reduced
+from repro_torch.configs import REGISTRY, reduced
 from repro_torch.models import make_model
 from repro_torch.models.layers import rms_norm, rope
 
@@ -122,8 +122,3 @@ def test_prefill_and_decode_step_match_jax(lm_factory, arch):
                     atol=1e-4)
     assert tc2["len"].tolist() == np.asarray(jc2["len"]).tolist() \
         == [S + 1] * B
-
-
-def test_unported_families_name_their_roadmap_item():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_model(reduced(get_config("phi3.5-moe")))
