@@ -92,7 +92,30 @@ package. Phases, each of which raises on a failed check (exit code 1):
    d. ``python -m repro_torch.launch.serve --arch llama3.2-3b --full
       --requests 8 --max-tokens 16 --stream`` as a subprocess: exit 0,
       with its own stream/output check.
-7. A ``{"kernels": [...]}`` line, the nvidia-smi line, and last
+7. Training (float32 on reduced configs, bf16 at full width; TF32 off;
+   the kernel launch counters set to 0 before it must read 0 after it):
+   a. one ``make_train_step`` step of each reduced family (llama3.2-3b,
+      phi3.5-moe, llava-next-34b, mamba2-130m, zamba2-2.7b,
+      hubert-xlarge) on the card and on the CPU from the same parameters
+      and batch: loss, per-leaf gradients, AdamW moments and parameters;
+   b. llama3.2-3b at full width and depth in bf16 (B = 8, S = 1024, two
+      microbatches, remat, in-place AdamW): 10 steps on one repeated
+      batch, every loss finite and the loss falling by LOSS_DROP; step
+      time, tokens/s, ``train_mfu`` and peak memory; one traced step
+      (device time by op class, idle share);
+   c. (run first, at initialisation) the same width, loss and gradients
+      only: one microbatch against two, ``ce_chunk=16384`` against the
+      full-logit loss, within the bf16 bounds;
+   d. one step (after a warm-up step) each of phi3.5-moe cut to 2 of 32
+      layers (grouped dispatch) and zamba2-2.7b cut to 12 of 54 layers at
+      S = 2048 (the plain SSD scan's backward): first loss near ln V,
+      losses and gradients finite;
+   e. a reduced-llama checkpoint saved, loaded onto the card and trained
+      on: bit-identical to the uninterrupted run;
+   f. ``python -m repro_torch.launch.train`` as subprocesses: 3 steps,
+      a rerun to 6 that resumes at 3, a fresh run to 6: equal last loss;
+   g. ``flash_attention`` refuses a q that requires grad.
+8. A ``{"kernels": [...]}`` line, the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -2376,6 +2399,514 @@ def run_serve_entry_point():
     return {"exit": out.returncode, "seconds": secs}
 
 
+# ---------------------------------------------------------------------------
+# phase 7: training on the card
+# ---------------------------------------------------------------------------
+
+# 7a: one train step of each family's reduced config, card against CPU
+TRAIN_FAMILIES = ("llama3.2-3b", "phi3.5-moe-42b-a6.6b", "llava-next-34b",
+                  "mamba2-130m", "zamba2-2.7b", "hubert-xlarge")
+# float32 loss and gradients, card vs CPU: the CPU tests' tolerance of the
+# port against the JAX package (the same float32 sums in another order)
+TRAIN_TOL = dict(atol=2e-5, rtol=1e-4)
+TRAIN_LR = 1e-3
+# parameters after one AdamW step where the update direction is firm (the
+# CPU's sqrt(v_hat) at least 1e-3 of its leaf's largest); elsewhere step 1
+# moves an entry by about lr * sign(g), so those are held to 2 lr (1 + wd
+# |p|), and they must stay under this share of all entries
+TRAIN_PARAM_ATOL = 1e-6
+TRAIN_LOOSE_SHARE = 0.05
+# (atol, rtol) of the moments after one step: m = 0.1 g, v = 0.05 g^2, held
+# as the CPU tests hold the port's against the JAX package's
+MOMENT_TOL = {"m": (2e-6, 1e-4), "v": (1e-10, 3e-4)}
+# 7b: llama3.2-3b at full width, bf16, on one repeated batch
+FULL_TRAIN_BATCH, FULL_TRAIN_SEQ, FULL_TRAIN_MICRO = 8, 1024, 2
+FULL_TRAIN_STEPS = 10
+FULL_TRAIN_LR = 3e-4
+LOSS_DROP = 1.0            # nats from the first of the steps to the last
+# 7c: bf16 bounds at full width: |loss difference| relative to the loss,
+# and per leaf ||g - g_ref|| / ||g_ref||. Each microbatch's gradients are
+# rounded to bf16 before they are summed, and the chunked loss sums its
+# chunks' bf16 hidden-state gradients; where a leaf's gradient is a small
+# sum of large cancelling parts the rounding is large beside it: a 16-layer
+# d 1024 bf16 model on the CPU differs by up to 1.45e-2 in both comparisons
+BF16_LOSS_RTOL = 1e-3
+BF16_GRAD_RTOL = 5e-2
+CE_CHUNK = 16384
+# 7d: depth cuts and batches of the two more families
+MOE_TRAIN_LAYERS = 2       # of phi3.5-moe's 32
+HYBRID_TRAIN_LAYERS = 12   # of zamba2-2.7b's 54: two shared-block groups
+INIT_LOSS_WINDOW = 1.0     # |first loss - ln V| at initialisation
+
+
+def close_count(torch, a, b, atol, rtol):
+    """(entries outside atol + rtol |b|, max |a - b|) of two tensors."""
+    d = (a.float() - b.float()).abs()
+    bad = int((d > atol + rtol * b.float().abs()).sum())
+    return bad, float(d.max()) if d.numel() else 0.0
+
+
+def train_card_vs_cpu(torch, dev):
+    """7a: each family's reduced config (float32) through
+    ``loss_and_grads`` and one ``make_train_step`` step on the card and on
+    the CPU, from the same parameters and batch."""
+    from repro_torch.configs import REGISTRY, reduced
+    from repro_torch.data.tokens import TokenDataset
+    from repro_torch.models import make_model
+    from repro_torch.training.optimizer import AdamWConfig, adamw_init
+    from repro_torch.training.train import (batch_to, loss_and_grads,
+                                            make_train_step)
+    from repro_torch.tree import tree_leaves, tree_map
+    print("phase 7a: one train step of each reduced family, card vs CPU "
+          f"(float32; loss and gradients to {TRAIN_TOL})")
+    out = {}
+    for arch in TRAIN_FAMILIES:
+        cfg = reduced(REGISTRY[arch])
+        model = make_model(cfg)
+        p_cpu = model.init_params(torch.Generator().manual_seed(0))
+        p_dev = tree_map(lambda t: t.to(dev), p_cpu)
+        batch = TokenDataset(cfg.vocab_size, 32, 4, seed=1,
+                             input_kind=cfg.input_kind,
+                             d_model=cfg.d_model).next_batch()
+        l_c, g_c = loss_and_grads(model, p_cpu, batch_to(batch, "cpu"))
+        l_d, g_d = loss_and_grads(model, p_dev, batch_to(batch, dev))
+        bad_l, dl = close_count(torch, l_d.cpu(), l_c, **TRAIN_TOL)
+        check(bad_l == 0, f"7a {arch}: loss {float(l_d)} vs CPU {float(l_c)}")
+        worst = 0.0
+        for a, b in zip(tree_leaves(g_d), tree_leaves(g_c)):
+            bad, d = close_count(torch, a.cpu(), b, **TRAIN_TOL)
+            check(bad == 0, f"7a {arch}: {bad} gradient entries outside "
+                  f"{TRAIN_TOL} (max diff {d:.3e})")
+            worst = max(worst, d / max(float(b.abs().max()), 1e-30))
+        ocfg = AdamWConfig(lr=TRAIN_LR, warmup_steps=0)
+        step = make_train_step(model, ocfg)
+        pc, oc, mc = step(p_cpu, adamw_init(p_cpu), batch)
+        pd, od, md = step(p_dev, adamw_init(p_dev), batch)
+        check(abs(float(md["lr"]) - float(mc["lr"])) <= 3e-7 * TRAIN_LR,
+              f"7a {arch}: lr {float(md['lr'])} vs {float(mc['lr'])}")
+        bc2 = 1 - ocfg.beta2
+        loose = total = 0
+        p_diff = 0.0
+        for a, b, v, p0 in zip(tree_leaves(pd), tree_leaves(pc),
+                               tree_leaves(oc["v"]), tree_leaves(p_cpu)):
+            a = a.cpu()
+            sv = torch.sqrt(v / bc2)
+            firm = (sv >= 1e-3 * sv.max()) | (sv == 0)
+            d = (a - b).abs()
+            d_firm = float(d[firm].max()) if firm.any() else 0.0
+            check(d_firm <= TRAIN_PARAM_ATOL, f"7a {arch}: a parameter "
+                  f"moved {d_firm:.3e} from the CPU's where its update "
+                  "direction is firm")
+            bound = 2 * TRAIN_LR * (1 + ocfg.weight_decay * p0.abs()) + 1e-6
+            check(bool((d <= bound).all()), f"7a {arch}: a parameter moved "
+                  "more than 2 lr from the CPU's")
+            loose += int((~firm).sum())
+            total += firm.numel()
+            p_diff = max(p_diff, d_firm)
+        check(loose < TRAIN_LOOSE_SHARE * total,
+              f"7a {arch}: {loose} of {total} entries without a firm "
+              "update direction")
+        for name, a, b in (("m", od["m"], oc["m"]), ("v", od["v"], oc["v"])):
+            for x, y in zip(tree_leaves(a), tree_leaves(b)):
+                bad, d = close_count(torch, x.cpu(), y, *MOMENT_TOL[name])
+                check(bad == 0, f"7a {arch}: {name} differs by {d:.3e}")
+        print(f"  {arch:22s} loss {float(l_d):.6f} (CPU {float(l_c):.6f}, "
+              f"diff {dl:.2e}); worst gradient {worst:.2e} of its leaf's "
+              f"largest; params after AdamW within {p_diff:.2e} where firm, "
+              f"{loose}/{total} loose")
+        out[arch] = {"loss": float(l_d), "loss_diff": dl,
+                     "worst_grad_rel": worst, "param_diff": p_diff,
+                     "loose": loose, "entries": total}
+    return out
+
+
+def leaf_rel(torch, g, ref):
+    """||g - ref|| / ||ref|| in float32."""
+    num = torch.linalg.vector_norm((g.float() - ref.float()))
+    return float(num / torch.clamp(torch.linalg.vector_norm(ref.float()),
+                                   min=1e-30))
+
+
+def train_full_llama(torch, dev):
+    """7c then 7b: llama3.2-3b at full width and depth, bf16."""
+    from torch.profiler import ProfilerActivity, profile
+    import repro_torch.training.train as train_mod
+    from repro_torch.configs import REGISTRY
+    from repro_torch.data.tokens import TokenDataset
+    from repro_torch.distributed.hints import ShardingHints, use_hints
+    from repro_torch.models import make_model
+    from repro_torch.training.optimizer import AdamWConfig, adamw_init
+    from repro_torch.training.train import (batch_to, loss_and_grads,
+                                            make_train_step)
+    from repro_torch.tree import tree_leaves
+    cfg = REGISTRY["llama3.2-3b"]
+    model = make_model(cfg)
+    B, S, n = FULL_TRAIN_BATCH, FULL_TRAIN_SEQ, FULL_TRAIN_MICRO
+    params = model.init_params(torch.Generator(device=dev).manual_seed(0))
+    N = sum(t.numel() for t in tree_leaves(params))
+    n_mm = sum(t.numel() for t in tree_leaves(
+        {"lm_head": params["lm_head"], "attn": params["layers"]["attn"],
+         "mlp": params["layers"]["mlp"]}))
+    batch = batch_to(TokenDataset(cfg.vocab_size, S, B, seed=0)
+                     .next_batch(), dev)
+    tokens = B * S
+    print(f"phase 7b/7c: {cfg.name} at full width and depth, bf16: "
+          f"L={cfg.num_layers} d={cfg.d_model} {cfg.num_heads}/"
+          f"{cfg.num_kv_heads} heads of {cfg.head_dim} d_ff={cfg.d_ff} "
+          f"V={cfg.vocab_size}: {N / 1e9:.3f} B parameters ({n_mm / 1e9:.3f} "
+          f"B in matmuls); B={B} S={S}")
+
+    # -- 7c: at initialisation, loss and gradients only (no optimizer
+    # state): one microbatch against two, the chunked loss against the
+    # full-logit loss --
+    t0 = time.perf_counter()
+    l1, g1 = loss_and_grads(model, params, batch, 1)
+    l2, g2 = loss_and_grads(model, params, batch, n)
+    c = {"loss_n1": float(l1), "loss_n2": float(l2)}
+    rel_mb = [leaf_rel(torch, a, b) for a, b in zip(tree_leaves(g1),
+                                                    tree_leaves(g2))]
+    check(all(g.dtype == torch.bfloat16 for g in tree_leaves(g1)),
+          "7c: one-microbatch gradients are not in the param dtype")
+    check(all(g.dtype == torch.float32 for g in tree_leaves(g2)),
+          "7c: accumulated gradients are not float32")
+    del g1
+    with use_hints(ShardingHints(ce_chunk=CE_CHUNK)):
+        l3, g3 = loss_and_grads(model, params, batch, n)
+    c["loss_chunked_ce"] = float(l3)
+    rel_ce = [leaf_rel(torch, a, b) for a, b in zip(tree_leaves(g3),
+                                                    tree_leaves(g2))]
+    finite = all(bool(torch.isfinite(g).all()) for g in tree_leaves(g2))
+    del g2, g3
+    c.update(grad_rel_n1_vs_n2=max(rel_mb), grad_rel_chunked_vs_full=max(
+        rel_ce), seconds=time.perf_counter() - t0)
+    print(f"  7c: loss n=1 {c['loss_n1']:.6f}, n={n} {c['loss_n2']:.6f}, "
+          f"ce_chunk={CE_CHUNK} {c['loss_chunked_ce']:.6f} (ln V "
+          f"{math.log(cfg.vocab_size):.4f}); worst leaf ||dg||/||g||: n=1 "
+          f"vs n={n} {max(rel_mb):.3e}, chunked vs full {max(rel_ce):.3e} "
+          f"(bound {BF16_GRAD_RTOL}); {c['seconds']:.1f} s")
+    check(finite, "7c: a gradient is not finite")
+    for name, la, lb, rel in (("n=1 vs n=2", l1, l2, rel_mb),
+                              ("chunked vs full", l3, l2, rel_ce)):
+        check(abs(float(la) - float(lb)) <= BF16_LOSS_RTOL * abs(float(lb)),
+              f"7c {name}: loss {float(la)} vs {float(lb)}")
+        check(max(rel) <= BF16_GRAD_RTOL,
+              f"7c {name}: a leaf's gradient differs by {max(rel):.3e}")
+    check(abs(float(l2) - math.log(cfg.vocab_size)) < INIT_LOSS_WINDOW,
+          f"7c: the loss at initialisation {float(l2)} is not near ln V")
+
+    # -- 7b: AdamW steps on one repeated batch, in place --
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    opt = adamw_init(params)
+    step = make_train_step(model, AdamWConfig(lr=FULL_TRAIN_LR,
+                                              warmup_steps=0),
+                           num_microbatches=n, remat=True, in_place=True)
+    losses, secs = [], []
+    for _ in range(FULL_TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, batch)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+        check(math.isfinite(losses[-1]) and math.isfinite(
+            float(m["grad_norm"])), f"7b: step {len(losses)} loss "
+            f"{losses[-1]} grad norm {float(m['grad_norm'])}")
+    peak = torch.cuda.max_memory_allocated()
+    step_s = statistics.median(secs[1:])
+    tok_s = tokens / step_s
+    mfu = 6 * n_mm * tokens / step_s / BF16_FLOPS
+    print(f"  7b: {FULL_TRAIN_STEPS} steps (n={n} microbatches, remat, "
+          f"in-place AdamW, lr {FULL_TRAIN_LR}): losses "
+          f"{', '.join(f'{x:.4f}' for x in losses)}")
+    print(f"  7b: step {step_s * 1e3:.1f} ms (median of steps 2..; first "
+          f"{secs[0] * 1e3:.1f} ms), {tok_s:.1f} tokens/s, train_mfu "
+          f"{mfu:.4f} (6 x {n_mm / 1e9:.3f} B x {tokens} tokens a step at "
+          f"{BF16_FLOPS / 1e12:.0f} TFLOP/s), peak memory "
+          f"{peak / 1e9:.2f} GB")
+    check(losses[-1] <= losses[0] - LOSS_DROP,
+          f"7b: the loss fell {losses[0] - losses[-1]:.4f}, not "
+          f"{LOSS_DROP}")
+    check(abs(losses[0] - math.log(cfg.vocab_size)) < INIT_LOSS_WINDOW,
+          f"7b: the first loss {losses[0]} is not near ln V")
+
+    # -- one traced step: device time by op class, idle share --
+    orig = train_mod.adamw_update
+    train_mod.adamw_update = labelled(torch, orig, "optimizer")
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            params, opt, m = step(params, opt, batch)
+            torch.cuda.synchronize()
+    finally:
+        train_mod.adamw_update = orig
+    by_group, by_name, by_port, n_act = device_time(prof, skip=("optimizer",))
+    busy = sum(by_group.values()) / 1e3
+    trace = {"device_busy_ms": busy, "device_activities": n_act}
+    if busy:
+        from torch.autograd import DeviceType
+        ops = {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CPU and e.name in (
+                    "aten::mm", "aten::addmm", "aten::bmm", "optimizer"):
+                us = e.device_time_total if hasattr(
+                    e, "device_time_total") else e.cuda_time_total
+                ops[e.name] = ops.get(e.name, 0.0) + us / 1e3
+        mm = ops.get("aten::mm", 0.0) + ops.get("aten::addmm", 0.0)
+        groups = {"bf16 matmuls (aten::mm: projections, MLP, lm head)": mm,
+                  "float32 attention einsums (aten::bmm)": ops.get(
+                      "aten::bmm", 0.0),
+                  "optimizer (adamw_update)": ops.get("optimizer", 0.0)}
+        groups["the rest (elementwise, reductions, indexing, copies)"] = \
+            busy - sum(groups.values())
+        trace.update(device_ms_by_group=groups,
+                     idle_share=1.0 - busy / (step_s * 1e3))
+        print(f"  7b traced step: device busy {busy:.1f} ms of a "
+              f"{step_s * 1e3:.1f} ms step: idle share "
+              f"{trace['idle_share']:.3f}; {n_act} device activities")
+        for g, ms in groups.items():
+            print(f"    {g:56s} {ms:9.1f} ms")
+        print_breakdown(by_group, by_name, by_port, 1, "in the step")
+    else:
+        print("  7b traced step: device time not measured (the profiler "
+              "saw no device activity)")
+    del params, opt, m
+    return {"params": N, "matmul_params": n_mm, "tokens_per_step": tokens,
+            "losses": losses, "step_s": secs, "step_ms_median": step_s * 1e3,
+            "tokens_per_s": tok_s, "train_mfu": mfu,
+            "peak_memory_gb": peak / 1e9, "trace": trace, "grads": c}
+
+
+def train_two_families(torch, dev):
+    """7d: one step each (after a warm-up step) of phi3.5-moe and
+    zamba2-2.7b at full width, cut in depth."""
+    from repro_torch.configs import REGISTRY
+    from repro_torch.data.tokens import TokenDataset
+    from repro_torch.models import make_model
+    from repro_torch.training.optimizer import AdamWConfig, adamw_init
+    from repro_torch.training.train import batch_to, make_train_step
+    from repro_torch.tree import tree_leaves
+    out = {}
+    for arch, layers, B, S in (
+            ("phi3.5-moe-42b-a6.6b", MOE_TRAIN_LAYERS, 4, 1024),
+            ("zamba2-2.7b", HYBRID_TRAIN_LAYERS, 2, 2048)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        full = REGISTRY[arch]
+        cfg = dataclasses.replace(full, num_layers=layers)
+        if cfg.moe:
+            check(S * cfg.moe.top_k >= 4 * cfg.moe.num_experts,
+                  "7d: the grouped dispatch would not run")
+        model = make_model(cfg)
+        params = model.init_params(torch.Generator(device=dev).manual_seed(0))
+        N = sum(t.numel() for t in tree_leaves(params))
+        opt = adamw_init(params)
+        state_gb = sum(t.numel() * (t.element_size() * 2 + 8)
+                       for t in tree_leaves(params)) / 1e9
+        data = TokenDataset(cfg.vocab_size, S, B, seed=0)
+        step = make_train_step(model, AdamWConfig(lr=FULL_TRAIN_LR,
+                                                  warmup_steps=0),
+                               remat=True, in_place=True)
+        what = (f"{arch}, {layers} of {full.num_layers} layers at full "
+                f"width")
+        print(f"phase 7d: {what}: {N / 1e9:.3f} B parameters, "
+              f"{state_gb:.1f} GB of params, grads and AdamW moments; "
+              f"B={B} S={S}")
+        losses, secs, norms = [], [], []
+        for _ in range(2):
+            batch = batch_to(data.next_batch(), dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, opt, m = step(params, opt, batch)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+        peak = torch.cuda.max_memory_allocated()
+        ln_v = math.log(cfg.vocab_size)
+        print(f"  losses {losses[0]:.4f}, {losses[1]:.4f} (ln V {ln_v:.4f}); "
+              f"gradient norms {norms[0]:.4f}, {norms[1]:.4f}; step "
+              f"{secs[1] * 1e3:.1f} ms (first {secs[0] * 1e3:.1f}); peak "
+              f"memory {peak / 1e9:.2f} GB")
+        # the global norm is finite only if every gradient entry is
+        check(all(math.isfinite(x) for x in losses + norms),
+              f"7d {arch}: a loss or gradient is not finite")
+        check(abs(losses[0] - ln_v) < INIT_LOSS_WINDOW,
+              f"7d {arch}: the first loss {losses[0]} is not near ln V")
+        check(all(bool(torch.isfinite(t).all()) for t in tree_leaves(params)),
+              f"7d {arch}: a parameter is not finite after the steps")
+        out[arch] = {"layers": layers, "of_layers": full.num_layers,
+                     "params": N, "batch": B, "seq": S, "losses": losses,
+                     "grad_norms": norms, "step_ms": secs[1] * 1e3,
+                     "first_step_ms": secs[0] * 1e3,
+                     "peak_memory_gb": peak / 1e9}
+        del params, opt, m, step
+    return out
+
+
+def resume_run(torch, dev, path):
+    """3 steps, a checkpoint, 2 more; then the checkpoint loaded onto the
+    card and the same 2 steps. Returns the leaves and losses that differ."""
+    from repro_torch.configs import REGISTRY, reduced
+    from repro_torch.data.tokens import TokenDataset
+    from repro_torch.distributed.checkpoint import (_flatten,
+                                                    load_checkpoint,
+                                                    save_checkpoint)
+    from repro_torch.models import make_model
+    from repro_torch.training.optimizer import AdamWConfig
+    from repro_torch.training.train import init_training, make_train_step
+    from repro_torch.tree import tree_leaves
+    cfg = reduced(REGISTRY["llama3.2-3b"])
+    model = make_model(cfg)
+    params, opt = init_training(model,
+                                torch.Generator(device=dev).manual_seed(0))
+    ds = TokenDataset(cfg.vocab_size, 32, 4, seed=1)
+    step = make_train_step(model, AdamWConfig(lr=5e-3, warmup_steps=0),
+                           in_place=True)
+    for _ in range(3):
+        params, opt, _ = step(params, opt, ds.next_batch())
+    save_checkpoint(str(path), {"params": params, "opt": opt}, step=3,
+                    metadata={"data": ds.state()})
+    target = {"params": params, "opt": opt}
+    loss_a = []
+    for _ in range(2):
+        params, opt, m = step(params, opt, ds.next_batch())
+        loss_a.append(float(m["loss"]))
+    tree, s, meta = load_checkpoint(str(path), target=target, device=dev)
+    check(s == 3 and all(t.device == dev for t in tree_leaves(tree)),
+          "7e: the checkpoint did not load onto the card at step 3")
+    ds2 = TokenDataset(cfg.vocab_size, 32, 4, seed=1)
+    ds2.restore(meta["data"])
+    p_b, o_b = tree["params"], tree["opt"]
+    loss_b = []
+    for _ in range(2):
+        p_b, o_b, m = step(p_b, o_b, ds2.next_batch())
+        loss_b.append(float(m["loss"]))
+    names = [p for p, _ in _flatten({"params": params, "opt": opt})]
+    differ = [nm for nm, a, b in zip(
+        names, tree_leaves({"params": params, "opt": opt}),
+        tree_leaves({"params": p_b, "opt": o_b})) if not torch.equal(a, b)]
+    return differ, loss_a, loss_b
+
+
+def train_resume(torch, dev):
+    """7e: save, load onto the card, continue: bit-identical to the
+    uninterrupted run. If an op of the step is not deterministic on the
+    card, the run says which leaves differed and repeats the comparison
+    under ``torch.use_deterministic_algorithms(True)``."""
+    path = ROOT / "build" / "train_smoke" / "resume.ckpt"
+    differ, la, lb = resume_run(torch, dev, path)
+    mode = "default"
+    print(f"phase 7e: checkpoint resume on the card (reduced llama3.2-3b, "
+          f"float32): losses {la} uninterrupted, {lb} resumed; "
+          f"{len(differ)} leaves differ")
+    if differ or la != lb:
+        print(f"  not bit-identical in the default mode: {differ[:8]}; "
+              "again under torch.use_deterministic_algorithms(True)")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            differ, la, lb = resume_run(torch, dev, path)
+        finally:
+            torch.use_deterministic_algorithms(False)
+        mode = "deterministic algorithms"
+    check(not differ and la == lb, f"7e: the resumed run differs from the "
+          f"uninterrupted one ({mode}): {differ[:8]}, {la} vs {lb}")
+    print(f"  bit-identical ({mode})")
+    return {"mode": mode, "losses": la}
+
+
+def train_entry_point():
+    """7f: ``python -m repro_torch.launch.train`` on the card: 3 steps with
+    a checkpoint at 3, a rerun to 6 on that directory that resumes at 3,
+    and a fresh run to 6 (started beside the first); the resumed run's last
+    loss must equal the fresh run's."""
+    base = ROOT / "build" / "train_smoke"
+    shutil.rmtree(base / "a", ignore_errors=True)
+    shutil.rmtree(base / "b", ignore_errors=True)
+    env = {**os.environ, "PYTHONPATH": str(SRC)}
+
+    def cmd(steps, d):
+        return [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+                "llama3.2-3b", "--steps", str(steps), "--ckpt-every", "3",
+                "--ckpt-dir", str(base / d)]
+    print(f"phase 7f: the training entry point: {' '.join(cmd(3, 'a')[1:])}"
+          f"; then --steps 6 on it; a fresh --steps 6 beside")
+    t0 = time.perf_counter()
+
+    def start(steps, d):
+        return subprocess.Popen(cmd(steps, d), cwd=ROOT, env=env,
+                                stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+
+    def finish(proc, what):
+        out, _ = proc.communicate(timeout=300)
+        for line in out.strip().splitlines()[-4:]:
+            print(f"    {what}: {line}")
+        check(proc.returncode == 0, f"7f: {what} exited {proc.returncode}")
+        found = re.findall(r"last loss (\S+)$", out, re.M)
+        check(len(found) == 1, f"7f: {what} printed no last loss")
+        return out, float(found[0])
+
+    first, fresh = start(3, "a"), start(6, "b")
+    finish(first, "steps 0..3")
+    out_f, loss_f = finish(fresh, "fresh 0..6")
+    out_r, loss_r = finish(start(6, "a"), "resumed 3..6")
+    check("at step 3" in out_r and "resumed from" in out_r,
+          "7f: the rerun did not resume at step 3")
+    check("resumed" not in out_f, "7f: the fresh run resumed")
+    check(loss_r == loss_f, f"7f: resumed last loss {loss_r!r} vs fresh "
+          f"{loss_f!r}")
+    secs = time.perf_counter() - t0
+    print(f"  resumed at step 3; last loss {loss_r!r} in both; {secs:.1f} s")
+    return {"last_loss": loss_r, "seconds": secs}
+
+
+def train_guard(torch, dev):
+    """7g: a kernel wrapper refuses an input that requires grad."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    q = torch.randn(1, 128, 8, 64, device=dev, dtype=torch.bfloat16,
+                    requires_grad=True)
+    k = torch.randn(1, 128, 8, 64, device=dev, dtype=torch.bfloat16)
+    raised = None
+    try:
+        flash_attention(q, k, k)
+    except RuntimeError as e:
+        raised = str(e)
+    check(raised is not None and "forward only" in raised,
+          "7g: flash_attention ran on a q that requires grad")
+    print(f"phase 7g: flash_attention on the card with a q that requires "
+          f"grad raises: {raised}")
+    return {"raised": raised}
+
+
+def run_training(torch, dev):
+    """Phase 7. The kernel launch counters are set to 0 before it and must
+    read 0 after it: the training path runs the plain versions."""
+    from repro_torch.kernels import _build
+    t_phase = time.perf_counter()
+    _build.reset_launches()
+    out = {"card_vs_cpu": train_card_vs_cpu(torch, dev)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["llama_full"] = train_full_llama(torch, dev)
+    out["families"] = train_two_families(torch, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["resume"] = train_resume(torch, dev)
+    out["entry_point"] = train_entry_point()
+    out["guard"] = train_guard(torch, dev)
+    launched = {k: v for k, v in {**_build.LAUNCHES,
+                                  **_build.PASS_LAUNCHES}.items() if v}
+    check(not launched, f"phase 7 launched port kernels: {launched}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"  no port kernel launched in phase 7; phase 7 in "
+          f"{out['phase_s']:.1f} s")
+    return out
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         fail(f"{SRC / 'repro_torch'} not found: run from a checkout")
@@ -2422,6 +2953,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     family_metrics["serve"] = run_serve_entry_point()
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_metrics = run_training(torch, dev)
 
     replaces = {
         "paged_attention": ("src/repro_torch/csrc/paged_attention.cu",
@@ -2462,6 +2996,7 @@ def main() -> int:
     print(json.dumps({"metrics": metrics, "hybrid_metrics": hybrid_metrics,
                       "spec_metrics": spec_metrics,
                       "family_metrics": family_metrics,
+                      "train_metrics": train_metrics,
                       "hubert_flash_attention": timing[
                           "flash_attention hubert"],
                       "decode_kernel": decode, "ssd_kernel": ssd_kernel,

@@ -1,5 +1,5 @@
-"""Parameter bridge: the JAX package's parameter tree, as numpy, to the
-port's tensors.
+"""Parameter bridge: the JAX package's parameter tree (and AdamW state),
+as numpy, to the port's tensors.
 
 The caller converts the JAX tree to numpy itself (the parity tests call
 ``jax.tree.map(np.asarray, params)``), so the port never sees a JAX array.
@@ -46,3 +46,16 @@ def params_to_numpy(params):
     if isinstance(params, dict):
         return {k: params_to_numpy(v) for k, v in params.items()}
     return params.detach().float().cpu().numpy()
+
+
+def opt_state_from_jax_numpy(state, device):
+    """The reference's AdamW state ({'m', 'v'} float32 trees and an int32
+    'step'), as numpy, to the port's: the same trees of float32 tensors on
+    ``device`` and a 0-d int32 step tensor."""
+    def conv(x):
+        if isinstance(x, dict):
+            return {k: conv(v) for k, v in x.items()}
+        return torch.from_numpy(np.array(x, dtype=np.float32)).to(device)
+    return {"m": conv(dict(state["m"])), "v": conv(dict(state["v"])),
+            "step": torch.tensor(int(np.asarray(state["step"])),
+                                 dtype=torch.int32, device=device)}

@@ -8,6 +8,11 @@ flags, so an edited source or header rebuilds, and loaded with ``ctypes``.
 Nothing here runs at import time, and nothing here is reached for CPU
 tensors: the CPU tests never need ``nvcc``.
 
+The kernels are forward only: :func:`forbid_grad` makes every wrapper
+refuse inputs that require grad while autograd records, on the CPU (where
+the wrapper runs its plain version) as on the card (where a kernel's
+output would carry no gradient).
+
 Every C entry returns ``cudaGetLastError()`` after its launch;
 :func:`check` raises on anything but 0. ``LAUNCHES`` counts launches per
 kernel wrapper, so a run can show that the main path went through the
@@ -22,6 +27,8 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
@@ -47,6 +54,15 @@ def reset_launches() -> None:
     for counts in (LAUNCHES, PASS_LAUNCHES):
         for k in counts:
             counts[k] = 0
+
+
+def forbid_grad(name: str, *tensors) -> None:
+    """Raise when autograd is recording and one of ``tensors`` requires
+    grad: the kernel behind wrapper ``name`` has no backward."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name} is forward only (its kernel has no backward): call it "
+            f"under torch.no_grad() or with inputs that do not require grad")
 
 
 def _nvcc() -> str:

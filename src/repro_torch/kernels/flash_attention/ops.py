@@ -53,6 +53,7 @@ def flash_attention(q, k, v, *, causal=True, window=0, seq_k=None):
     if H % KH:
         raise ValueError(
             f"query heads ({H}) must be a multiple of kv heads ({KH})")
+    _build.forbid_grad("flash_attention", q, k, v)
     if q.device.type == "cpu":
         return chunked_attention(q, k, v, causal=causal, window=window,
                                  kv_len=seq_k)
@@ -95,6 +96,7 @@ def paged_flash_prefill(q, k_pages, v_pages, block_tables, q_offset: int,
     if H % KH:
         raise ValueError(
             f"query heads ({H}) must be a multiple of kv heads ({KH})")
+    _build.forbid_grad("paged_flash_prefill", q, k_pages, v_pages)
     if q.device.type == "cpu":
         return paged_prefill_attention_ref(q, k_pages, v_pages, block_tables,
                                            q_offset, kv_len)

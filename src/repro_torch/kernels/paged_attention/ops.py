@@ -107,6 +107,7 @@ def paged_attention(q, k_pages, v_pages, block_tables, context_lens):
     0 beyond the length); context_lens: (B,) int32. Returns (B, H, D).
     """
     _group(q, k_pages.shape[2])
+    _build.forbid_grad("paged_attention", q, k_pages, v_pages)
     if q.device.type == "cpu":
         return paged_attention_ref(q, k_pages, v_pages, block_tables,
                                    context_lens)
@@ -134,6 +135,8 @@ def fused_decode_attention(q, k_pages, v_pages, block_tables, context_lens,
     softmax. Shapes otherwise as :func:`paged_attention`. Returns (B, H, D).
     """
     _group(q, k_pages.shape[2])
+    _build.forbid_grad("fused_decode_attention", q, k_pages, v_pages, k_tail,
+                       v_tail)
     if q.device.type == "cpu":
         return fused_decode_attention_ref(q, k_pages, v_pages, block_tables,
                                           context_lens, k_tail, v_tail,

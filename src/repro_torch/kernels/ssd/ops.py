@@ -63,6 +63,7 @@ def ssd(x, a, B, C, chunk=256):
     """x: (b, s, h, p) (already * dt); a: (b, s, h) float32; B, C:
     (b, s, n) shared across heads. Returns (y (b, s, h, p) in x's dtype,
     final state (b, h, p, n) float32)."""
+    _build.forbid_grad("ssd", x, a, B, C)
     if x.device.type == "cpu":
         return ssd_chunked(x, a, B, C, chunk)
     b, s, h, p = x.shape

@@ -6,7 +6,8 @@ parameters are reused at every application, after every ``attn_every``
 mamba layers (the Zamba parameter-sharing trick); ``attn_every == 0`` gives
 the pure SSM stack. The reference's scan over groups of scanned layers is a
 pair of Python loops over per-layer views here. The training ``forward``
-comes with the training slice (ROADMAP Queue 1 item 10).
+rematerialises each mamba sublayer and not the shared block, as the
+reference's ``jax.checkpoint(inner)`` does.
 """
 from __future__ import annotations
 
@@ -17,7 +18,8 @@ from repro_torch.models.layers import (attention_layer, dense_init,
                                        init_attention, init_mlp, mlp_layer,
                                        rms_norm)
 from repro_torch.models.mamba2 import init_mamba, mamba_layer
-from repro_torch.models.transformer import _scatter_new_kv, layer_params
+from repro_torch.models.transformer import (_scatter_new_kv, layer_list,
+                                            layer_params, remat_call)
 
 
 def _dtype(cfg) -> torch.dtype:
@@ -75,6 +77,29 @@ def _shared_block(x, sp, cfg, positions, *, cache=None, cache_index=None,
     x = x + a
     return x + mlp_layer(rms_norm(x, sp["norm2"], cfg.norm_eps),
                          sp["mlp"]), kv
+
+
+def forward(params, x, cfg, *, remat=True, window=0):
+    """Train forward. x: (B, S, D). Returns (hidden, aux=0). ``remat``:
+    each mamba sublayer is recomputed in the backward (no effect without
+    autograd); the shared block keeps its activations. Walks the same
+    groups as :func:`prefill`."""
+    B, S, _ = x.shape
+    positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
+    G, per = _group_params(cfg)
+    sp = params.get("shared")
+    layers = layer_list(params, cfg.num_layers)
+
+    def inner(h, lp):
+        return _mamba_sublayer(h, lp, cfg)[0]
+
+    for g in range(G):
+        for j in range(per):
+            x = remat_call(inner, remat, x, layers[g * per + j])
+        if sp is not None:
+            x, _ = _shared_block(x, sp, cfg, positions, window=window)
+    return (rms_norm(x, params["final_norm"], cfg.norm_eps),
+            torch.zeros((), dtype=torch.float32, device=x.device))
 
 
 def prefill(params, x, cfg, *, max_len=None, window=0, use_kernel=False):

@@ -1,22 +1,27 @@
-"""Model facade (the port of ``repro/models/model.py``): init / prefill /
-decode_step / init_cache / logits, dispatching on the config's family:
+"""Model facade (the port of ``repro/models/model.py``): init / train_loss
+/ prefill / decode_step / init_cache / logits, dispatching on the config's
+family:
 
   dense | moe | vlm | audio -> transformer stack
   ssm | hybrid              -> mamba2 / zamba2 stack
 
 The vlm and audio frontends are stubs, as in the reference: precomputed
-features enter through ``batch["embeds"]``. Training (``train_loss``) is
-not ported yet (ROADMAP Queue 1 item 10).
+features enter through ``batch["embeds"]``. ``train_loss`` is
+differentiable with ``torch.autograd`` through plain PyTorch only: the
+kernels' wrappers are forward only and refuse inputs that require grad.
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.distributed import hints as _hints
 from repro_torch.models import hybrid as hybrid_mod
 from repro_torch.models import transformer as tf_mod
 
+MOE_AUX_COEF = 0.01
 # context length beyond which hybrid archs switch their (shared) attention
 # to a sliding window (the reference's long-context adaptation)
 FULL_ATTN_MAX_CTX = 32_768
@@ -63,6 +68,34 @@ class LM:
             head = params["embed"].T
         return (hidden @ head).float()
 
+    # -- training ----------------------------------------------------------
+    def train_loss(self, params, batch, *, remat=True):
+        """batch: {'tokens'|'embeds', 'labels' (B,S) integer}. Returns
+        (loss, metrics {'ce', 'aux'}), all float32 scalars. The LM loss is
+        the full-logit cross-entropy, or ``_chunked_ce`` when the current
+        hints set ``ce_chunk`` below the vocabulary size."""
+        cfg = self.cfg
+        x = self.embed_inputs(params, batch)
+        window = _window_for(cfg, x.shape[1])
+        if cfg.family in ("ssm", "hybrid"):
+            hidden, aux = hybrid_mod.forward(params, x, cfg, remat=remat,
+                                             window=window)
+        else:
+            hidden, aux = tf_mod.forward(params, x, cfg, remat=remat,
+                                         window=window)
+        labels = batch["labels"].long()
+        hp = _hints.current()
+        chunk = hp.ce_chunk if hp is not None else None
+        if chunk and cfg.vocab_size > chunk:
+            ce = _chunked_ce(params, hidden, labels, chunk)
+        else:
+            logits = self.logits(params, hidden)           # (B,S,V) f32
+            logz = torch.logsumexp(logits, dim=-1)
+            ll = logits.gather(-1, labels[..., None])[..., 0]
+            ce = (logz - ll).mean()
+        loss = ce + MOE_AUX_COEF * aux
+        return loss, {"ce": ce, "aux": aux}
+
     # -- serving -----------------------------------------------------------
     def prefill(self, params, batch, *, max_len=None, last_index=None,
                 moe_mode="grouped", use_kernel=False):
@@ -78,8 +111,8 @@ class LM:
         x = self.embed_inputs(params, batch)
         window = _window_for(cfg, max_len or x.shape[1])
         if cfg.is_encoder:
-            hidden, _ = tf_mod.forward(params, x, cfg, window=window,
-                                       use_kernel=use_kernel)
+            hidden, _ = tf_mod.forward(params, x, cfg, remat=False,
+                                       window=window, use_kernel=use_kernel)
             return self.logits(params, hidden), None
         kw = {"moe_mode": moe_mode} if cfg.family == "moe" else {}
         hidden, cache = _backend(cfg).prefill(
@@ -115,3 +148,50 @@ def _cache_ctx_len(cfg, cache):
 
 def make_model(cfg: ModelConfig) -> LM:
     return LM(cfg)
+
+
+def _chunked_ce(params, hidden, labels, chunk):
+    """Blockwise cross-entropy: a loop over vocab chunks of ``chunk``
+    columns of the head (zero-padded to whole chunks, padded logits at
+    -1e30) carrying the online logsumexp state, as the reference's scan.
+    Under autograd each chunk is rematerialised, so the backward keeps
+    only the (B, S) state between chunks, never the (B, S, V) logits."""
+    head = params.get("lm_head")
+    if head is None:
+        head = params["embed"].T
+    d, V = head.shape
+    nc = -(-V // chunk)
+    pad = nc * chunk - V
+    if pad:
+        head = torch.nn.functional.pad(head, (0, pad))
+    B, S, _ = hidden.shape
+    NEG = -1e30
+    cols = torch.arange(chunk, device=hidden.device)
+
+    def body(m, s, ll, w, i):
+        lg = (hidden @ w).float()                          # (B,S,chunk)
+        if pad:
+            lg = torch.where((i * chunk + cols < V)[None, None, :], lg, NEG)
+        m_new = torch.maximum(m, lg.amax(dim=-1))
+        s = s * torch.exp(m - m_new) \
+            + torch.exp(lg - m_new[..., None]).sum(-1)
+        loc = labels - i * chunk
+        in_ch = (loc >= 0) & (loc < chunk)
+        picked = lg.gather(-1, torch.clamp(loc, 0, chunk - 1)[..., None])
+        ll = ll + torch.where(in_ch, picked[..., 0], 0.0)
+        return m_new, s, ll
+
+    state = (torch.full((B, S), NEG, dtype=torch.float32,
+                        device=hidden.device),
+             torch.zeros((B, S), dtype=torch.float32, device=hidden.device),
+             torch.zeros((B, S), dtype=torch.float32, device=hidden.device))
+    for i in range(nc):
+        w = head[:, i * chunk:(i + 1) * chunk]
+        if torch.is_grad_enabled():
+            state = checkpoint(body, *state, w, i, use_reentrant=False,
+                               preserve_rng_state=False)
+        else:
+            state = body(*state, w, i)
+    m, s, ll = state
+    logz = m + torch.log(torch.clamp(s, min=1e-30))
+    return (logz - ll).mean()

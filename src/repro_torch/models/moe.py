@@ -12,7 +12,8 @@ Two execution modes, as in the reference:
   sequence each expert gathers its top-``capacity`` tokens by gate
   priority (dropping the rest), runs them, and the outputs come back to
   token order by a gather through the inverse permutation (``combine=
-  "gather"``) or by a scatter-add (``"scatter"``). Forward only.
+  "gather"``) or by a scatter-add (``"scatter"``). Differentiable: the
+  training forward runs it under autograd.
 
 Top-k selections break ties toward the lower index, as ``lax.top_k`` does
 (a stable descending sort): ``torch.topk`` promises no order for ties.

@@ -6,12 +6,17 @@ on a leading L axis (``params["layers"]["attn"]["wq"]`` is (L, d, q_dim)),
 so a bridged JAX tree maps key for key. An MoE config has
 ``layers["moe"]`` (router and expert stacks) where the others have
 ``layers["mlp"]``. The layer loop is a Python loop over per-layer views
-(:func:`layer_params`) where the reference scans; ``forward`` has no
-rematerialisation (the port does not train yet).
+(:func:`layer_params`) where the reference scans. ``forward`` walks
+per-layer views made by one ``unbind`` of each stacked leaf
+(:func:`layer_list`), so a stacked leaf's gradient is put together once,
+not summed from per-layer full-size zeros; with ``remat`` each block runs
+under ``torch.utils.checkpoint``, the counterpart of the reference's
+``jax.checkpoint(body)``.
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.layers import (attention_layer, dense_init,
                                        init_attention, init_mlp, mlp_layer,
@@ -60,6 +65,29 @@ def layer_params(params, i: int):
     return take(params["layers"])
 
 
+def layer_list(params, num_layers: int):
+    """Every layer's parameters, from one ``unbind`` of each stacked leaf:
+    the per-layer views of :func:`layer_params`, whose gradients autograd
+    stacks once per leaf."""
+    def split(tree):
+        if isinstance(tree, dict):
+            parts = {k: split(v) for k, v in tree.items()}
+            return [{k: p[i] for k, p in parts.items()}
+                    for i in range(num_layers)]
+        return tree.unbind(0)
+    return split(params["layers"])
+
+
+def remat_call(fn, remat: bool, *args):
+    """``fn(*args)``, rematerialised in the backward when ``remat`` and
+    autograd is recording (non-reentrant checkpoint; the model has no
+    randomness, so no RNG state is kept)."""
+    if remat and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=False)
+    return fn(*args)
+
+
 def _block(x, lp, cfg, positions, *, cache=None, cache_index=None,
            window=0, moe_mode="grouped", return_kv=False, use_kernel=False):
     """One transformer block. Returns (x, new_cache_or_kv, aux): ``aux``
@@ -78,19 +106,25 @@ def _block(x, lp, cfg, positions, *, cache=None, cache_index=None,
     return x + f, kv, aux
 
 
-def forward(params, x, cfg, *, moe_mode="grouped", window=0,
+def forward(params, x, cfg, *, remat=True, moe_mode="grouped", window=0,
             use_kernel=False):
-    """Full-sequence forward (the encoder's path). x: (B, S, D)
-    embeddings. Returns (hidden (B,S,D), aux loss summed over layers).
-    ``use_kernel``: attention through the flash kernel's wrapper (causal
-    or not, as the config says)."""
+    """Full-sequence forward (train / encoder). x: (B, S, D) embeddings.
+    Returns (hidden (B,S,D), aux loss summed over layers). ``remat``:
+    each block is recomputed in the backward instead of keeping its
+    activations (no effect without autograd). ``use_kernel``: attention
+    through the flash kernel's wrapper (causal or not, as the config says;
+    forward only, so not under autograd)."""
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
+
+    def body(h, lp):
+        h2, _, a = _block(h, lp, cfg, positions, window=window,
+                          moe_mode=moe_mode, use_kernel=use_kernel)
+        return h2, a
+
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i in range(cfg.num_layers):
-        x, _, a = _block(x, layer_params(params, i), cfg, positions,
-                         window=window, moe_mode=moe_mode,
-                         use_kernel=use_kernel)
+    for lp in layer_list(params, cfg.num_layers):
+        x, a = remat_call(body, remat, x, lp)
         aux = aux + a
     return rms_norm(x, params["final_norm"], cfg.norm_eps), aux
 

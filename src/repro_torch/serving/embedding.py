@@ -43,7 +43,7 @@ class EmbeddingEngine:
         x = torch.as_tensor(np.asarray(embeds_batch), device=self.device)
         lens = torch.as_tensor(np.asarray(lengths), device=self.device)
         h, _ = tf_forward(params, x.to(params["embed"].dtype),
-                          self.model.cfg, use_kernel=True)
+                          self.model.cfg, remat=False, use_kernel=True)
         return pool(h, lens).float().cpu().numpy()
 
 

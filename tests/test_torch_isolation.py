@@ -4,6 +4,8 @@
   nothing of the JAX package ``repro``: checked on the source (an AST walk
   of every import) and at run time (importing every module of the port in
   a fresh interpreter loads neither).
+* Every module of the port imports, and its checkpoints round-trip,
+  without ``msgpack`` and ``zstandard``, which the card's machine lacks.
 * The entry points run on the CUDA device unless the caller names the
   CPU: without a card and without ``device=`` they raise.
 * ``chip_smoke.py`` fails, printing no result, where it cannot run.
@@ -67,6 +69,30 @@ def test_port_modules_load_neither_jax_nor_repro():
     assert out.stdout.strip() == "[]"
 
 
+def test_port_modules_load_without_msgpack_or_zstandard(tmp_path):
+    mods = sorted(".".join(p.relative_to(PORT.parent).with_suffix("").parts)
+                  .removesuffix(".__init__") for p in PORT.rglob("*.py"))
+    code = ("import importlib, sys\n"
+            "sys.modules['msgpack'] = None\n"
+            "sys.modules['zstandard'] = None\n"
+            f"for m in {mods!r}: importlib.import_module(m)\n"
+            "import torch\n"
+            "from repro_torch.distributed.checkpoint import "
+            "load_checkpoint, save_checkpoint\n"
+            f"p = {str(tmp_path / 'a.ckpt')!r}\n"
+            "x = {'w': torch.arange(4, dtype=torch.bfloat16)}\n"
+            "save_checkpoint(p, x, step=2)\n"
+            "y, s, _ = load_checkpoint(p, target=x, device='cpu')\n"
+            "assert s == 2 and torch.equal(x['w'], y['w'])\n"
+            "print('ok')")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         env={"PYTHONPATH": str(REPO / "src"),
+                              "PATH": "/usr/bin:/bin"},
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
 def test_entry_points_refuse_to_fall_back_to_cpu(monkeypatch):
     cfg = reduced(REGISTRY["llama3.2-3b"])
     model = make_model(cfg)
@@ -88,13 +114,15 @@ def test_entry_points_refuse_to_fall_back_to_cpu(monkeypatch):
 
 
 def test_rules_cover_every_package_of_the_port():
-    """The walks above reach the API, data and launch modules and the
-    serving surfaces of the moe/vlm/audio slice."""
+    """The walks above reach the API, data and launch modules, the
+    serving surfaces of the moe/vlm/audio slice and the training slice."""
     files = {str(p.relative_to(PORT)) for p in PORT.rglob("*.py")}
     for f in ("api/schemas.py", "api/client.py", "api/errors.py",
               "api/stream.py", "data/workload.py", "data/tokens.py",
               "launch/serve.py", "models/moe.py", "serving/embedding.py",
-              "serving/offline.py"):
+              "serving/offline.py", "launch/train.py", "training/train.py",
+              "training/optimizer.py", "distributed/checkpoint.py",
+              "distributed/_msgpack.py", "distributed/hints.py"):
         assert f in files
 
 
