@@ -115,7 +115,28 @@ package. Phases, each of which raises on a failed check (exit code 1):
    f. ``python -m repro_torch.launch.train`` as subprocesses: 3 steps,
       a rerun to 6 that resumes at 3, a fresh run to 6: equal last loss;
    g. ``flash_attention`` refuses a q that requires grad.
-8. A ``{"kernels": [...]}`` line, the nvidia-smi line, and last
+8. Tensor-parallel serving: four shards of a ``(1, 4)`` mesh on the one
+   card (``make_local_mesh(1, 4, devices=[card] * 4)``), bf16 random
+   weights, each part after the previous one's weights are freed:
+   a. llama3.2-3b whole on phase 3's settings (8 kv heads, 2 a shard):
+      phase 3's 8 requests through the fused K=8 path
+      (``fused_decode_attention`` once per shard, layer and step:
+      launches = fused steps x 28 x 4), a decode window timed and traced
+      beside phase 3's, 2 requests on the per-step path
+      (``paged_attention``: steps x 28 x 4), prefix-cache hit tokens equal
+      to phase 3's, no logits transfer, peak memory; then the mesh's
+      kernel tier teacher-forced against the 1-device kernel tier
+      (LOGITS_TOL);
+   b. granite-34b at full width, 4 of 88 layers (one kv head: the cache
+      splits over head_dim, pool shards (..., 1, 32), the plain path, no
+      kernel launched): 4 requests, then teacher-forced against 1 device;
+   c. phi3.5-moe at full width, 4 of 32 layers (4 of 16 experts a shard,
+      the router replicated): 4 requests (``fused_decode_attention`` per
+      shard), then teacher-forced: free runs with their routing flips
+      reported, and the mesh routed by the 1-device decisions held to
+      LOGITS_TOL.
+9. A ``{"kernels": [...]}`` line (each kernel's phase-8a launches as
+   ``tp_launches``), the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -342,6 +363,13 @@ def run_kernel_checks(torch, dev):
     edges += [
         dict(main, H=32, dtype=bf16, label="phi3.5-moe G=4, main shape"),
         dict(main, H=56, dtype=bf16, label="llava-next-34b G=7, main shape"),
+    ]
+    # phase 8's per-shard geometries (a quarter of the kv heads and of
+    # their query heads): llama3.2-3b's 6 over 2 (G = 3), phi3.5-moe's 8
+    # over 2 (G = 4)
+    edges += [
+        dict(main, H=6, KH=2, dtype=bf16, label="llama3.2-3b shard: 6/2"),
+        dict(main, H=8, KH=2, dtype=bf16, label="phi3.5-moe shard: 8/2"),
     ]
     c = decode_case(K, dtype=bf16, **main)
     args = (c["q"], c["kp"], c["vp"], c["tables"], c["cl"])
@@ -1197,6 +1225,7 @@ def run_engine(torch, dev):
         "ttft_p50_s": statistics.median(ttft),
         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
         "decode_syncs": eng.stats["decode_syncs"],
+        "hit_tokens": stats["hit_tokens"],
     }
     print(f"  prefill {metrics['prefill_tokens']} tokens "
           f"({metrics['cached_prompt_tokens']} more from the prefix cache) "
@@ -2907,6 +2936,379 @@ def run_training(torch, dev):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 8: tensor-parallel serving, four shards on one card
+# ---------------------------------------------------------------------------
+
+TP_SHARDS = 4
+TP_GRANITE_LAYERS = 4          # of granite-34b's 88: the phase's time
+TP_MOE_LAYERS = 4              # of phi3.5-moe's 32: the phase's time
+
+
+def tp_mesh(dev):
+    """A (1, TP_SHARDS) mesh whose shards all live on ``dev``."""
+    from repro_torch.launch.mesh import make_local_mesh
+    return make_local_mesh(1, TP_SHARDS, devices=[dev] * TP_SHARDS)
+
+
+def tp_teacher_forced(torch, model, params, mesh, dev, prompts, steps,
+                      on_tier=None):
+    """Kernel-tier paged backends, one device and ``mesh``, on the same
+    prompts (512-token chunks), then ``steps`` per-step decodes each fed the
+    1-device backend's greedy tokens. ``on_tier(name)`` is called before
+    each backend computes ("one" / "mesh"). Returns (worst logits rel_err,
+    greedy tokens that match, the mesh backend)."""
+    import numpy as np
+    from repro_torch.serving.backends import PagedBackend
+    bk = {name: PagedBackend(model, params, max_slots=len(prompts),
+                             max_len=2048, page_size=64, use_kernel=True,
+                             mesh=m, device=dev)
+          for name, m in (("one", None), ("mesh", mesh))}
+    on_tier = on_tier or (lambda name: None)
+    lg = {name: [] for name in bk}
+    for sid, pr in enumerate(prompts):
+        for name, b in bk.items():
+            on_tier(name)
+            task = b.start_prefill(f"s{sid}", pr)
+            out = None
+            while out is None:
+                out, _ = b.prefill_chunk(task, 512)
+            lg[name].append(out.float().cpu().numpy()[None])
+    tok = np.array([int(x.argmax()) for x in lg["one"]])
+    agree = 0
+    for _ in range(steps):
+        for name, b in bk.items():
+            on_tier(name)
+            lg[name].append(b.decode_batch(tok))
+        agree += int((lg["mesh"][-1].argmax(-1)
+                      == lg["one"][-1].argmax(-1)).sum())
+        tok = lg["one"][-1].argmax(-1)
+    worst = max(float(np.abs(m - o).max() / max(np.abs(o).max(), 1e-6))
+                for m, o in zip(lg["mesh"], lg["one"]))
+    return worst, agree / (steps * len(prompts)), bk["mesh"]
+
+
+def tp_launch_check(what, launches, expect):
+    """Per-shard launches of each kernel against layers x steps x shards
+    (``expect``: name -> count; every other kernel 0)."""
+    for name, n in launches.items():
+        want = expect.get(name, 0)
+        check(n == want, f"{what}: {name} launched {n} times, expected "
+              f"{want}")
+
+
+def run_tp_llama(torch, dev, one_device):
+    """8a: llama3.2-3b whole on 4 shards of one card, phase 3's settings
+    (8 kv heads: 2 a shard, both decode kernels once per shard)."""
+    import numpy as np
+    from repro_torch.configs import REGISTRY
+    from repro_torch.kernels import _build
+    from repro_torch.models import make_model
+    from repro_torch.serving import backends
+    from repro_torch.serving.backends import PagedBackend
+    from repro_torch.serving.engine import (ContinuousBatchingEngine,
+                                            EngineConfig)
+
+    cfg = REGISTRY["llama3.2-3b"]
+    L, V = cfg.num_layers, cfg.vocab_size
+    print(f"phase 8a: {cfg.name} whole on {TP_SHARDS} shards of one card "
+          f"(L={L}, {cfg.num_kv_heads} kv heads: "
+          f"{cfg.num_kv_heads // TP_SHARDS} a shard)")
+    t_phase = time.perf_counter()
+    model = make_model(cfg)
+    params = model.init_params(torch.Generator(device=dev).manual_seed(0))
+    mesh = tp_mesh(dev)
+    ecfg = dict(backend="paged", use_kernel=True, page_size=64, max_slots=8,
+                max_seq_len=4096, enable_prefix_cache=True,
+                chunked_prefill_budget=512, decode_steps_per_sync=8,
+                mesh=mesh)
+    warm = ContinuousBatchingEngine(model, params, EngineConfig(**ecfg),
+                                    device=dev)
+    drive(torch, warm, make_requests(2, 300, [40, 90], 9, V, seed=9))
+    del warm
+    torch.cuda.empty_cache()
+
+    # -- main path: phase 3's requests through the fused K=8 path --
+    tails = np.linspace(64, 512, 8).astype(int)
+    eng = ContinuousBatchingEngine(model, params, EngineConfig(**ecfg),
+                                   device=dev)
+    be = eng.backend
+    check(be._kernel_sharded, "8a: the decode kernels are not per shard")
+    shapes = [tuple(p["k"].shape) for p in be.pool_shards]
+    print(f"  pool shards {shapes}")
+    check(all(s[3] == cfg.num_kv_heads // TP_SHARDS for s in shapes),
+          "8a: pools not split over the kv heads")
+    steps, orig = count_fused_steps(PagedBackend)
+    torch.cuda.reset_peak_memory_stats()
+    backends.reset_transfer_stats()
+    _build.reset_launches()
+    outs, t_pf, t_dec, n_dec = drive(torch, eng, make_requests(
+        8, 1024, tails, 64, V, seed=0))
+    launches = dict(_build.LAUNCHES)
+    PagedBackend._fused_kernel_impl = orig
+    check_outputs("8a fused path", outs, 8, 64, V)
+    check(backends.TRANSFER_STATS["decode_logits_transfers"] == 0,
+          "8a: the fused path moved logits to the host")
+    hit = eng.cache_stats()["hit_tokens"]
+    print(f"  fused path launches {launches}: {sum(steps)} fused decode "
+          f"steps x {L} layers x {TP_SHARDS} shards; prefix-cache hit tokens "
+          f"{hit} (1 device: {one_device['hit_tokens']})")
+    tp_launch_check("8a fused path", launches, {
+        "fused_decode_attention": sum(steps) * L * TP_SHARDS})
+    check(hit == one_device["hit_tokens"], "8a: prefix-cache hit tokens "
+          "differ from the 1-device run")
+    metrics = {
+        "prefill_tok_s": eng.stats["prefill_tokens"] / t_pf,
+        "decode_tok_s": n_dec / t_dec if t_dec else float("nan"),
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+        "hit_tokens": hit, "fused_steps": sum(steps),
+        "launches_fused": launches}
+    print(f"  prefill {metrics['prefill_tok_s']:.1f} tokens/s, decode-only "
+          f"steps {metrics['decode_tok_s']:.1f} tokens/s (1 device, phase "
+          f"3: {one_device['prefill_tok_s']:.1f} / "
+          f"{one_device['decode_tok_s']:.1f}); peak memory "
+          f"{metrics['peak_mem_gib']:.2f} GiB (the unsharded weights kept "
+          f"for the comparison included)")
+    del eng, be
+    torch.cuda.empty_cache()
+    tp = profile_decode(torch, ContinuousBatchingEngine(
+        model, params, EngineConfig(**ecfg), device=dev),
+        make_requests(8, 1024, tails, 64, V, seed=3))
+    metrics.update({f"tp_{k}": v for k, v in tp.items()})
+    print(f"  decode step: {tp['decode_step_wall_ms']:.3f} ms on the host "
+          f"clock, device "
+          + (f"{tp['decode_step_device_ms']:.3f}" if
+             tp["decode_step_device_ms"] else "not measured")
+          + f" ms (1 device, phase 3: {one_device['decode_step_wall_ms']:.3f}"
+          f" / " + (f"{one_device['decode_step_device_ms']:.3f}" if
+                    one_device["decode_step_device_ms"] else "not measured")
+          + " ms)")
+    torch.cuda.empty_cache()
+
+    # -- per-step path: paged_attention once per shard and layer --
+    eng = ContinuousBatchingEngine(
+        model, params, EngineConfig(**dict(ecfg, fused_decode=False)),
+        device=dev)
+    calls = []
+    wrap(eng.backend, "decode_batch",
+         lambda fn, *a: (calls.append(1), fn(*a))[1])
+    _build.reset_launches()
+    outs2, _, _, _ = drive(torch, eng, make_requests(2, 300, [40, 90], 16, V,
+                                                     seed=1))
+    step_launches = dict(_build.LAUNCHES)
+    check_outputs("8a per-step path", outs2, 2, 16, V)
+    print(f"  per-step path launches {step_launches}: {len(calls)} steps x "
+          f"{L} layers x {TP_SHARDS} shards")
+    tp_launch_check("8a per-step path", step_launches, {
+        "paged_attention": len(calls) * L * TP_SHARDS})
+    metrics["launches_per_step"] = step_launches
+    del eng
+    torch.cuda.empty_cache()
+
+    # -- teacher-forced: mesh kernel tier against 1-device kernel tier --
+    rng = np.random.default_rng(2)
+    worst, share, _ = tp_teacher_forced(
+        torch, model, params, mesh, dev,
+        [rng.integers(2, V, size=n).tolist() for n in (700, 530)], 16)
+    print(f"  teacher-forced (700 / 530-token prompts, 16 decode steps): "
+          f"mesh vs 1 device logits rel_err {worst:.3e} (tolerance "
+          f"{LOGITS_TOL}); greedy tokens that match {share:.3f}")
+    check(worst <= LOGITS_TOL, "8a: mesh logits disagree with 1 device")
+    metrics.update(teacher_forced_rel_err=worst, greedy_match_share=share)
+    del params
+    torch.cuda.empty_cache()
+    metrics["phase_s"] = time.perf_counter() - t_phase
+    print(f"  phase 8a in {metrics['phase_s']:.1f} s")
+    return metrics
+
+
+def run_tp_granite(torch, dev):
+    """8b: granite-34b at full width, TP_GRANITE_LAYERS layers, on 4 shards
+    (one kv head: the cache splits over head_dim, the plain path
+    serves)."""
+    import numpy as np
+    from repro_torch.configs import REGISTRY
+    from repro_torch.kernels import _build
+    from repro_torch.models import make_model
+    from repro_torch.serving import backends
+    from repro_torch.serving.engine import (ContinuousBatchingEngine,
+                                            EngineConfig)
+
+    full = REGISTRY["granite-34b"]
+    cfg = dataclasses.replace(full, num_layers=TP_GRANITE_LAYERS)
+    L, V = cfg.num_layers, cfg.vocab_size
+    print(f"phase 8b: {cfg.name} at full width, {L} of {full.num_layers} "
+          f"layers, on {TP_SHARDS} shards (d={cfg.d_model} "
+          f"H={cfg.num_heads}/{cfg.num_kv_heads} hd={cfg.head_dim} "
+          f"ff={cfg.d_ff}): head_dim split")
+    t_phase = time.perf_counter()
+    model = make_model(cfg)
+    params = model.init_params(torch.Generator(device=dev).manual_seed(0))
+    mesh = tp_mesh(dev)
+    eng = ContinuousBatchingEngine(model, params, EngineConfig(
+        **dict(FAMILY_ENGINE, mesh=mesh)), device=dev)
+    be = eng.backend
+    shapes = [tuple(p["k"].shape) for p in be.pool_shards]
+    print(f"  _kernel_sharded {be._kernel_sharded}; pool shards {shapes}")
+    check(not be._kernel_sharded, "8b: one kv head cannot split 4 ways")
+    check(all(s[3:] == (1, cfg.head_dim // TP_SHARDS) for s in shapes),
+          "8b: pool shards are not (..., 1, head_dim / 4)")
+    backends.reset_transfer_stats()
+    _build.reset_launches()
+    outs, t_pf, t_dec, n_dec = drive(torch, eng, make_requests(
+        4, 512, [64, 128, 192, 256], 16, V, seed=4, model=cfg.name))
+    launches = dict(_build.LAUNCHES)
+    check_outputs("8b", outs, 4, 16, V)
+    check(backends.TRANSFER_STATS["decode_logits_transfers"] == 0,
+          "8b: the fused path moved logits to the host")
+    print(f"  4 requests: launches {launches} (the plain head_dim-split "
+          f"path); decode-only steps {n_dec / t_dec:.1f} tokens/s")
+    tp_launch_check("8b", launches, {})
+    del eng, be
+    torch.cuda.empty_cache()
+    rng = np.random.default_rng(3)
+    worst, share, _ = tp_teacher_forced(
+        torch, model, params, mesh, dev,
+        [rng.integers(2, V, size=n).tolist() for n in (900, 611)], 8)
+    print(f"  teacher-forced (900 / 611-token prompts, 8 decode steps): "
+          f"mesh vs 1 device logits rel_err {worst:.3e} (tolerance "
+          f"{LOGITS_TOL}); greedy tokens that match {share:.3f}")
+    check(worst <= LOGITS_TOL, "8b: mesh logits disagree with 1 device")
+    del params
+    torch.cuda.empty_cache()
+    metrics = {"teacher_forced_rel_err": worst, "greedy_match_share": share,
+               "decode_tok_s": n_dec / t_dec, "launches": launches,
+               "pool_shard_shape": list(shapes[0]),
+               "phase_s": time.perf_counter() - t_phase}
+    print(f"  phase 8b in {metrics['phase_s']:.1f} s")
+    return metrics
+
+
+def run_tp_moe(torch, dev):
+    """8c: phi3.5-moe at full width, TP_MOE_LAYERS layers, on 4 shards: 4
+    of the 16 experts a shard, the router replicated; the kernel tier
+    routed by the 1-device run's decisions against the 1-device run, and
+    the free runs' routing flips reported."""
+    import numpy as np
+    from repro_torch.configs import REGISTRY
+    from repro_torch.kernels import _build
+    from repro_torch.models import make_model
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.serving import backends
+    from repro_torch.serving.backends import PagedBackend
+    from repro_torch.serving.engine import (ContinuousBatchingEngine,
+                                            EngineConfig)
+
+    full = REGISTRY["phi3.5-moe-42b-a6.6b"]
+    cfg = dataclasses.replace(full, num_layers=TP_MOE_LAYERS)
+    L, V, E, k = cfg.num_layers, cfg.vocab_size, cfg.moe.num_experts, \
+        cfg.moe.top_k
+    print(f"phase 8c: {cfg.name} at full width, {L} of {full.num_layers} "
+          f"layers, on {TP_SHARDS} shards: {E // TP_SHARDS} of {E} experts a "
+          f"shard, router replicated")
+    t_phase = time.perf_counter()
+    model = make_model(cfg)
+    params = model.init_params(torch.Generator(device=dev).manual_seed(0))
+    mesh = tp_mesh(dev)
+    eng = ContinuousBatchingEngine(model, params, EngineConfig(
+        **dict(FAMILY_ENGINE, mesh=mesh)), device=dev)
+    shards = eng.backend.stack.params
+    w1 = [s["layers"]["moe"]["w1"].shape for s in shards]
+    print(f"  expert stacks per shard {[tuple(s) for s in w1]}")
+    check(all(s[1] == E // TP_SHARDS for s in w1), "8c: experts not split")
+    check(all(s["layers"]["moe"]["router"] is params["layers"]["moe"]
+              ["router"] for s in shards), "8c: router not replicated")
+    steps, orig = count_fused_steps(PagedBackend)
+    backends.reset_transfer_stats()
+    _build.reset_launches()
+    outs, _, t_dec, n_dec = drive(torch, eng, make_requests(
+        4, 512, [64, 128, 192, 256], 16, V, seed=4, model=cfg.name))
+    launches = dict(_build.LAUNCHES)
+    PagedBackend._fused_kernel_impl = orig
+    check_outputs("8c", outs, 4, 16, V)
+    check(backends.TRANSFER_STATS["decode_logits_transfers"] == 0,
+          "8c: the fused path moved logits to the host")
+    print(f"  4 requests: launches {launches}: {sum(steps)} fused decode "
+          f"steps x {L} layers x {TP_SHARDS} shards; decode-only steps "
+          f"{n_dec / t_dec:.1f} tokens/s")
+    tp_launch_check("8c", launches, {
+        "fused_decode_attention": sum(steps) * L * TP_SHARDS})
+    del eng, shards
+    torch.cuda.empty_cache()
+
+    # -- teacher-forced: free runs, then the mesh routed by the 1-device
+    # run's top-k decisions, call by call (as phase 6a) --
+    log = {"on": None, "force": False}
+    orig_routing = moe_mod._routing
+
+    def routing(x, p, c):
+        probs = torch.softmax(x.float() @ p["router"], dim=-1)
+        calls = log.setdefault(log["on"], [])
+        calls.append(probs.reshape(-1, E))
+        if not log["force"] or log["on"] != "mesh":
+            return orig_routing(x, p, c)
+        ref = log["one"][len(calls) - 1]
+        idx = moe_mod._top_k(ref, k)[1].reshape(*probs.shape[:-1], k)
+        gates = probs.gather(-1, idx)
+        gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
+        return (torch.zeros_like(probs).scatter(-1, idx, gates), gates, idx,
+                torch.zeros((), device=x.device))
+
+    def tier(name):
+        log["on"] = name
+
+    moe_mod._routing = routing
+    prompts = [np.random.default_rng(2).integers(2, V, size=1500).tolist()]
+    try:
+        free, agree, _ = tp_teacher_forced(torch, model, params, mesh, dev,
+                                           prompts, 8, on_tier=tier)
+        n_route, flips, by_layer = routing_flips(torch, log["mesh"],
+                                                 log["one"], k, L)
+        log.clear()
+        log.update(on=None, force=True)
+        forced, _, _ = tp_teacher_forced(torch, model, params, mesh, dev,
+                                         prompts, 8, on_tier=tier)
+        _, fflips, _ = routing_flips(torch, log["mesh"], log["one"], k, L)
+    finally:
+        moe_mod._routing = orig_routing
+    print(f"  teacher-forced, free runs (1500-token prompt + 8 decode "
+          f"steps): mesh vs 1 device logits rel_err {free:.3e}; greedy "
+          f"tokens that match {agree:.3f}; routing: {len(flips)} of "
+          f"{n_route} (token, layer) top-{k} sets differ, by layer "
+          f"{by_layer}, margins "
+          f"{[f'{m:.2e} (rounding {r:.2e})' for m, r in flips[:8]]}")
+    print(f"  teacher-forced, the mesh routed by the 1-device decisions: "
+          f"logits rel_err {forced:.3e} (tolerance {LOGITS_TOL}); "
+          f"{len(fflips)} decisions where its own top-{k} would differ, "
+          f"margins {[f'{m:.2e} (rounding {r:.2e})' for m, r in fflips[:8]]}")
+    check(all(m <= 2 * r for m, r in fflips), "8c: under the same routing "
+          "a top-k decision differs by more than twice the rounding")
+    check(forced <= LOGITS_TOL, "8c: under the same routing the mesh logits "
+          "disagree with 1 device")
+    del params
+    torch.cuda.empty_cache()
+    metrics = {"free_run_rel_err": free, "forced_routing_rel_err": forced,
+               "routing_decisions": n_route, "routing_flips": len(flips),
+               "forced_would_flip": len(fflips), "greedy_match_share": agree,
+               "decode_tok_s": n_dec / t_dec, "launches": launches,
+               "phase_s": time.perf_counter() - t_phase}
+    print(f"  phase 8c in {metrics['phase_s']:.1f} s")
+    return metrics
+
+
+def run_tensor_parallel(torch, dev, one_device):
+    """Phase 8: the three parts, each after the previous one's weights are
+    freed."""
+    out = {}
+    for name, run in (("llama", lambda: run_tp_llama(torch, dev, one_device)),
+                      ("granite", lambda: run_tp_granite(torch, dev)),
+                      ("moe", lambda: run_tp_moe(torch, dev))):
+        gc.collect()
+        torch.cuda.empty_cache()
+        out[name] = run()
+    return out
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         fail(f"{SRC / 'repro_torch'} not found: run from a checkout")
@@ -2956,6 +3358,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     train_metrics = run_training(torch, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    tp_metrics = run_tensor_parallel(torch, dev, metrics)
 
     replaces = {
         "paged_attention": ("src/repro_torch/csrc/paged_attention.cu",
@@ -2974,6 +3379,13 @@ def main() -> int:
     # launches: paged_attention from phase 3's per-step path, the other two
     # paged kernels from its fused main path, ssd and flash_attention from
     # phase 4's main path
+    # phase 8a's per-shard launches: the fused path's and the per-step
+    # path's (no other kernel runs under a mesh)
+    tp_launches = {
+        "fused_decode_attention":
+            tp_metrics["llama"]["launches_fused"]["fused_decode_attention"],
+        "paged_attention":
+            tp_metrics["llama"]["launches_per_step"]["paged_attention"]}
     kernels = []
     for name, (source, repl) in replaces.items():
         r = timing[name]
@@ -2985,7 +3397,8 @@ def main() -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "device_ms": r["device_ms"],
-            "library_device_ms": r["library_device_ms"]})
+            "library_device_ms": r["library_device_ms"],
+            "tp_launches": tp_launches.get(name, 0)})
     decode = {"geometry": timing["paged_attention"]["geometry"],
               "device_ms_by_split": {
                   n: timing[n]["device_ms_by_split"]
@@ -2997,6 +3410,7 @@ def main() -> int:
                       "spec_metrics": spec_metrics,
                       "family_metrics": family_metrics,
                       "train_metrics": train_metrics,
+                      "tp_metrics": tp_metrics,
                       "hubert_flash_attention": timing[
                           "flash_attention hubert"],
                       "decode_kernel": decode, "ssd_kernel": ssd_kernel,

@@ -1,2 +1,2 @@
-"""Hints and checkpoints of the port (``repro/distributed`` without the
-mesh: ``sharding.py`` waits for ROADMAP Queue 1 item 11)."""
+"""Hints, checkpoints and tensor-parallel sharding of the port
+(``repro/distributed``)."""

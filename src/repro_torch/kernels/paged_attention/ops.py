@@ -16,7 +16,15 @@ The kernel splits each sequence's positions into blocks of
 float32 workspace, with one counter per (sequence, kv head, head group).
 Workspace and counters are made once per (device, stream) and grown when a
 call needs more (the counters are zeroed only then: every call leaves them
-zero), so a call allocates nothing but its output.
+zero), so a call allocates nothing but its output. Several shards of a
+tensor-parallel mesh on one card share that workspace: this is safe because
+their calls run one after another on one stream (shards on separate
+streams would need a workspace each).
+
+Under a tensor-parallel mesh ``paged_attention_sharded`` and
+``fused_decode_attention_sharded`` run the kernel once per shard, over the
+shard's own pool (NP, page, KH/N, D) and its own query groups (B, G KH/N,
+D): each kv head's attention is independent, so no collective is needed.
 """
 from __future__ import annotations
 
@@ -165,3 +173,33 @@ def fused_decode_attention(q, k_pages, v_pages, block_tables, context_lens,
     _build.check("paged_attention", "paged_decode_tail_fwd", rc)
     _build.LAUNCHES["fused_decode_attention"] += 1
     return out
+
+
+# -- tensor-parallel entries -------------------------------------------------
+# Every argument is a list over the shards, each entry on its shard's
+# device: q, pages and tails split over the kv heads (shard s holds kv heads
+# [s KH/N, (s+1) KH/N) and their query groups), tables and lengths
+# replicated. Requires KH % N == 0 (the caller serves other head counts by
+# the plain head_dim-split path).
+
+
+def shardable_kv_heads(num_kv_heads: int, mesh, axis: str = "model") -> bool:
+    return mesh is not None and num_kv_heads % mesh.shape[axis] == 0
+
+
+def paged_attention_sharded(qs, k_pages, v_pages, block_tables,
+                            context_lens):
+    """:func:`paged_attention` on each shard; returns the per-shard
+    (B, H/N, D) outputs."""
+    return [paged_attention(*a) for a in zip(qs, k_pages, v_pages,
+                                              block_tables, context_lens)]
+
+
+def fused_decode_attention_sharded(qs, k_pages, v_pages, block_tables,
+                                   context_lens, k_tails, v_tails,
+                                   tail_lens):
+    """:func:`fused_decode_attention` on each shard (tails split over the
+    kv heads too); returns the per-shard (B, H/N, D) outputs."""
+    return [fused_decode_attention(*a) for a in zip(
+        qs, k_pages, v_pages, block_tables, context_lens, k_tails, v_tails,
+        tail_lens)]

@@ -8,6 +8,8 @@ uniform average instead; its Pallas kernels, which these mirror, give
 zeros.) The CPU path of every wrapper in ``ops.py`` runs these, and the
 card checks hold the CUDA kernels against them. ``split_decode_attention_ref``
 models the CUDA kernel's split-K schedule for the tests; no wrapper runs it.
+The ``*_sharded_ref`` entries take lists over the shards of a
+tensor-parallel mesh, as the ``ops`` sharded entries do.
 """
 from __future__ import annotations
 
@@ -93,6 +95,24 @@ def fused_decode_attention_ref(q, k_pages, v_pages, block_tables,
     return decode_tail_attention_ref(
         q, gather_kv(k_pages, block_tables), gather_kv(v_pages, block_tables),
         context_lens, k_tail, v_tail, tail_lens)
+
+
+def paged_attention_sharded_ref(qs, k_pages, v_pages, block_tables,
+                                context_lens):
+    """:func:`paged_attention_ref` on each shard (lists over the shards,
+    split over the kv heads); returns the per-shard outputs."""
+    return [paged_attention_ref(*a) for a in zip(qs, k_pages, v_pages,
+                                                  block_tables, context_lens)]
+
+
+def fused_decode_attention_sharded_ref(qs, k_pages, v_pages, block_tables,
+                                       context_lens, k_tails, v_tails,
+                                       tail_lens):
+    """:func:`fused_decode_attention_ref` on each shard; returns the
+    per-shard outputs."""
+    return [fused_decode_attention_ref(*a) for a in zip(
+        qs, k_pages, v_pages, block_tables, context_lens, k_tails, v_tails,
+        tail_lens)]
 
 
 def split_decode_attention_ref(q, k_pages, v_pages, block_tables,

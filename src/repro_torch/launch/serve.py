@@ -8,7 +8,9 @@ reporting the paper's §5.1 metrics -- the reference's
 default; ``--full`` uses the full config (random weights from a seeded
 generator). ``--device`` picks where the engine runs: ``cuda`` by
 default, which raises without a card; ``--device cpu`` runs it on the
-CPU (each kernel wrapper then runs its plain version).
+CPU (each kernel wrapper then runs its plain version). ``--model-shards
+N`` serves tensor-parallel over a (1, N) mesh of the first N visible
+cards (ValueError when fewer are visible, as under ``--device cpu``).
 """
 from __future__ import annotations
 
@@ -22,6 +24,7 @@ from repro_torch.api.schemas import CompletionRequest
 from repro_torch.configs import REGISTRY, get_config, list_archs, reduced
 from repro_torch.data.workload import make_workload, token_ids_for
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import make_local_mesh
 from repro_torch.models import make_model
 from repro_torch.serving.engine import ContinuousBatchingEngine, EngineConfig
 
@@ -40,8 +43,8 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--max-seq-len", type=int, default=160)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--model-shards", type=int, default=1,
-                    help="tensor-parallel width (not ported: values above "
-                         "1 raise)")
+                    help="tensor-parallel width: shard the engine over a "
+                         "(1, N) mesh of the first N visible cards")
     ap.add_argument("--stream", action="store_true",
                     help="subscribe every request to the token stream and "
                          "report client-observed TTFT/ITL")
@@ -59,12 +62,13 @@ def main(argv: list[str] | None = None) -> None:
         raise SystemExit("hubert-xlarge is encoder-only: use the embedding "
                          "service (repro_torch.serving.embedding), not "
                          "generate")
+    mesh = None
     if args.model_shards > 1:
-        raise NotImplementedError("--model-shards > 1: tensor-parallel "
-                                  "meshes are not ported yet (ROADMAP Queue "
-                                  "1 item 11)")
-    # "cuda" means the current card, and raises when there is none
-    dev = resolve_device(None if args.device == "cuda" else args.device)
+        mesh = make_local_mesh(1, args.model_shards)
+    # "cuda" means the current card (the mesh's first under --model-shards),
+    # and raises when there is none
+    dev = mesh.devices[0] if mesh is not None \
+        else resolve_device(None if args.device == "cuda" else args.device)
 
     print(f"[serve] arch={args.arch} ({'full' if args.full else 'reduced'}) "
           f"backend={args.backend} slots={args.slots} "
@@ -74,7 +78,8 @@ def main(argv: list[str] | None = None) -> None:
         torch.Generator(device=dev).manual_seed(args.seed))
     engine = ContinuousBatchingEngine(model, params, EngineConfig(
         max_slots=args.slots, max_seq_len=args.max_seq_len,
-        backend=args.backend, page_size=16), device=dev)
+        backend=args.backend, page_size=16, mesh=mesh), device=dev)
+    del params                      # under a mesh the shards hold copies
 
     wl = make_workload(args.requests, rate=args.rate, seed=args.seed,
                        lo=4, hi=max(8, args.max_seq_len - args.max_tokens - 8))

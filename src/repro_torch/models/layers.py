@@ -168,6 +168,33 @@ def decode_attention_appended(q, k_cache, v_cache, k_new, v_new, *,
     return out.reshape(B, 1, H, D).to(q.dtype)
 
 
+def head_dim_split_attention(qs, ks, vs, valid, reduce):
+    """Attention whose head_dim is split over shards (tensor parallelism
+    where the kv heads do not divide the shards).
+
+    qs[s]: (B, T, H, d_s) and ks[s] / vs[s]: (B, S, KH, d_s), shard s's
+    slice of head_dim, on its device; ``valid``: (B, T, S) bool, which keys
+    query t sees; ``reduce(partials)``: their sum, on the lead device. Each
+    shard's partial float32 q.k^T is summed by ``reduce`` and scaled by
+    1/sqrt(sum d_s), one softmax runs on the lead device (a row with no
+    valid key is zeros), and each shard forms its own d_s slice of the
+    output. Returns per-shard (B, T, H, d_s) in q's dtype."""
+    B, T, H, _ = qs[0].shape
+    KH = ks[0].shape[2]
+    D = sum(q.shape[-1] for q in qs)
+    parts = [torch.einsum("btkgd,bskd->bkgts",
+                          q.reshape(B, T, KH, H // KH, -1).float(), k.float())
+             for q, k in zip(qs, ks)]
+    s = reduce(parts) * (1.0 / math.sqrt(D))
+    mask = valid[:, None, None]
+    s = torch.where(mask, s, NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.where(mask, torch.exp(s - m), 0.0)
+    p = p / torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-30)
+    return [torch.einsum("bkgts,bskd->btkgd", p.to(v.device), v.float())
+            .reshape(B, T, H, -1).to(q.dtype) for q, v in zip(qs, vs)]
+
+
 # ---------------------------------------------------------------------------
 # attention layer: projections + rope
 # ---------------------------------------------------------------------------
@@ -195,8 +222,6 @@ def init_attention(generator, cfg, dtype, num_stacked):
 def project_qkv(x, p, cfg, positions):
     """QKV projections + RoPE. x: (B, S, D) ->
     q (B,S,H,hd), k (B,S,KH,hd), v (B,S,KH,hd)."""
-    B, S, _ = x.shape
-    H, KH, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     q = x @ p["wq"]
     k = x @ p["wk"]
     v = x @ p["wv"]
@@ -204,6 +229,14 @@ def project_qkv(x, p, cfg, positions):
         q = q + p["bq"]
         k = k + p["bk"]
         v = v + p["bv"]
+    return split_heads_rope(q, k, v, cfg, positions)
+
+
+def split_heads_rope(q, k, v, cfg, positions):
+    """(B, S, H*hd) / (B, S, KH*hd) projections -> q (B,S,H,hd), k and v
+    (B,S,KH,hd), with RoPE on q and k (decoders)."""
+    B, S, _ = q.shape
+    H, KH, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     q = q.reshape(B, S, H, hd)
     k = k.reshape(B, S, KH, hd)
     v = v.reshape(B, S, KH, hd)

@@ -17,8 +17,9 @@ Two execution modes, as in the reference:
 
 Top-k selections break ties toward the lower index, as ``lax.top_k`` does
 (a stable descending sort): ``torch.topk`` promises no order for ties.
-The reference's expert-parallel hint (a mesh-only branch) is not ported
-(ROADMAP Queue 1 item 11).
+Under a tensor-parallel mesh :func:`moe_ffn_sharded` splits "dense" mode
+over the experts (the reference's expert-parallel hint, a branch of its
+grouped mode for GSPMD, is not needed for it).
 """
 from __future__ import annotations
 
@@ -70,6 +71,38 @@ def _routing(x, p, cfg):
     return gate_full, gates, idx, aux
 
 
+def _dense_experts(x, p, gate_full):
+    """Every expert of the stacks ``p`` (w1/w3 (E, d, f), w2 (E, f, d)) on
+    every token of x (B, S, D), combined by ``gate_full`` (B, S, E) in
+    float32. Returns (B * S, D) float32."""
+    B, S, D = x.shape
+    x2d = x.reshape(1, B * S, D)
+    h1 = torch.matmul(x2d, p["w1"])                            # (E, T, f)
+    h3 = torch.matmul(x2d, p["w3"])
+    y = torch.matmul(F.silu(h1) * h3, p["w2"])                 # (E, T, D)
+    return torch.einsum("etd,te->td", y.float(),
+                        gate_full.reshape(B * S, -1))
+
+
+def moe_ffn_sharded(x, ps, cfg, reduce):
+    """``moe_ffn`` in "dense" mode with the experts split over shards
+    (expert parallelism): ``ps[s]`` holds shard s's E/N experts (w1/w3/w2)
+    and the replicated router. The router runs once, on the lead device's
+    x, so every shard sees the same top-k and tie order; each shard
+    computes its own experts on every token, gated, and ``reduce`` sums the
+    shards' float32 outputs on the lead device. Returns (B, S, D) in x's
+    dtype."""
+    B, S, D = x.shape
+    gate_full = _routing(x, ps[0], cfg)[0]
+    n = gate_full.shape[-1] // len(ps)
+    parts = []
+    for s, p in enumerate(ps):
+        dev = p["w1"].device
+        parts.append(_dense_experts(x.to(dev), p,
+                                    gate_full[..., s * n:(s + 1) * n].to(dev)))
+    return reduce(parts).reshape(B, S, D).to(x.dtype)
+
+
 def moe_ffn(x, p, cfg, mode="grouped", combine="gather"):
     """x: (B, S, D) -> (out (B, S, D) in x's dtype, aux loss). ``mode``:
     "dense" or "grouped" (which runs dense when S * k < 4 * E, as the
@@ -79,12 +112,7 @@ def moe_ffn(x, p, cfg, mode="grouped", combine="gather"):
     gate_full, gates, idx, aux = _routing(x, p, cfg)
 
     if mode == "dense" or S * k < 4 * E:
-        x2d = x.reshape(1, B * S, D)
-        h1 = torch.matmul(x2d, p["w1"])                        # (E, T, f)
-        h3 = torch.matmul(x2d, p["w3"])
-        y = torch.matmul(F.silu(h1) * h3, p["w2"])             # (E, T, D)
-        out = torch.einsum("etd,te->td", y.float(),
-                           gate_full.reshape(B * S, E))
+        out = _dense_experts(x, p, gate_full)
         return out.reshape(B, S, D).to(x.dtype), aux
 
     cap = int(math.ceil(cfg.moe.capacity_factor * S * k / E))

@@ -11,17 +11,23 @@ per-layer views made by one ``unbind`` of each stacked leaf
 (:func:`layer_list`), so a stacked leaf's gradient is put together once,
 not summed from per-layer full-size zeros; with ``remat`` each block runs
 under ``torch.utils.checkpoint``, the counterpart of the reference's
-``jax.checkpoint(body)``.
+``jax.checkpoint(body)``. :class:`ServeStack` runs the serving engines'
+layer loops, on one device or split over the shards of a tensor-parallel
+mesh.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.layers import (attention_layer, dense_init,
+                                       head_dim_split_attention,
                                        init_attention, init_mlp, mlp_layer,
-                                       rms_norm)
-from repro_torch.models.moe import init_moe, moe_ffn
+                                       project_qkv, rms_norm,
+                                       split_heads_rope)
+from repro_torch.models.moe import init_moe, moe_ffn, moe_ffn_sharded
 
 
 def _dtype(cfg) -> torch.dtype:
@@ -203,3 +209,180 @@ def init_cache(cfg, batch, max_len, dtype, device):
             "v": torch.zeros(shape, dtype=dtype, device=device),
             "len": torch.zeros((batch,), dtype=torch.int32, device=device)}
 
+
+
+class ServeStack:
+    """The serving backends' layer ops of an attention-family stack, on one
+    device (``shard=None``) or over the N shards of a
+    :class:`~repro_torch.distributed.sharding.ServeSharding` (Megatron-style
+    tensor parallelism, one process driving every shard).
+
+    The residual stream, norms and sampling inputs live on the lead device.
+    Under a mesh the split weights work as follows (a weight the rules leave
+    whole is used on the lead device alone):
+
+    * embedding: vocab-parallel, each shard looks up the ids in its range
+      (zeros elsewhere), summed by ``all_reduce``;
+    * wq/wk/wv (+ biases), w1/w3: column-parallel; wo, w2: row-parallel,
+      their partials summed by ``all_reduce``;
+    * MoE expert stacks: split over the experts, the router replicated
+      (:func:`~repro_torch.models.moe.moe_ffn_sharded`);
+    * lm_head (or the tied embedding): column-parallel, the logits
+      concatenated on the lead device.
+
+    :meth:`qkv` gives each shard its (q, k, v) at the cache's split
+    (``kv_split``): with "heads" shard s holds kv heads [s KH/N, (s+1) KH/N)
+    and their G KH/N query heads, projected from its own columns, so
+    attention is shard-local; with "head_dim" the projections are gathered,
+    rope'd, and each shard takes its head_dim slice (the attention then sums
+    partial scores: ``layers.head_dim_split_attention``); with None every
+    shard gets the whole q, k and v. On one device every op is the one the
+    unsharded model runs.
+    """
+
+    def __init__(self, params, cfg, shard=None):
+        self.cfg = cfg
+        self.shard = shard
+        if shard is None:
+            self.params = [params]
+            self.devices = [params["embed"].device]
+            self.kv_split = "heads"
+        else:
+            self.params = shard.shard_params(params)
+            self.devices = shard.devices
+            self.kv_split = shard.kv_split
+        self.n = len(self.params)
+        self.layers = [[layer_params(p, i) for i in range(cfg.num_layers)]
+                       for p in self.params]
+        whole = {"embed": cfg.vocab_size, "wq": cfg.q_dim,
+                 "wk": cfg.kv_dim, "ffn": cfg.moe.num_experts if cfg.moe
+                 else cfg.d_ff}
+        self._split = {k: self.n > 1 and shard.rules._ax("model", v)
+                       is not None for k, v in whole.items()}
+        self._cfg_s = dataclasses.replace(
+            cfg, num_heads=cfg.num_heads // self.n,
+            num_kv_heads=cfg.num_kv_heads // self.n) \
+            if self.kv_split == "heads" else cfg
+
+    def reduce(self, partials):
+        """Sum of per-shard partials, on the lead device."""
+        return partials[0] if self.n == 1 \
+            else self.shard.all_reduce(partials)[0]
+
+    def replicate(self, x):
+        """``x`` on every shard's device."""
+        return [x] if self.n == 1 else self.shard.replicate(x)
+
+    # -- embedding and head ------------------------------------------------------
+    def embed(self, tokens):
+        """(B, S) token ids on the lead device -> (B, S, D)."""
+        if not self._split["embed"]:
+            return self.params[0]["embed"][tokens.long()]
+        parts = []
+        for p, dev in zip(self.params, self.devices):
+            e = p["embed"]
+            lo = len(parts) * e.shape[0]
+            t = tokens.to(dev).long() - lo
+            ok = ((t >= 0) & (t < e.shape[0]))[..., None]
+            parts.append(torch.where(ok, e[t.clamp(0, e.shape[0] - 1)], 0))
+        return self.reduce(parts)
+
+    def head(self, h):
+        """Hidden states (..., D) on the lead device -> the final norm, then
+        float32 logits (..., V) on it."""
+        h = rms_norm(h, self.params[0]["final_norm"], self.cfg.norm_eps)
+
+        def w(p):
+            head = p.get("lm_head")
+            return p["embed"].T if head is None else head
+        if not self._split["embed"]:
+            return (h @ w(self.params[0])).float()
+        return self.shard.all_gather(
+            [(h.to(dev) @ w(p)).float()
+             for p, dev in zip(self.params, self.devices)], dim=-1)
+
+    # -- attention projections -----------------------------------------------------
+    def _col(self, x, i, w, b):
+        """x @ layer i's attention weight ``w`` (+ bias ``b``), whole, on
+        the lead device."""
+        ps = [lay[i]["attn"] for lay in self.layers]
+        split = self._split["wq" if w == "wq" else "wk"]
+        outs = []
+        for p, dev in list(zip(ps, self.devices))[:self.n if split else 1]:
+            y = x.to(dev) @ p[w]
+            outs.append(y + p[b] if self.cfg.qkv_bias else y)
+        return self.shard.all_gather(outs, dim=-1) if split else outs[0]
+
+    def qkv(self, x, i: int, positions):
+        """Layer ``i``'s rope'd projections of the normed x (B, S, D) on
+        the lead device: per shard (q (B,S,H_s,d_s), k and v (B,S,KH_s,d_s))
+        on its device, at the cache's split."""
+        if self.kv_split == "heads":
+            return [project_qkv(x.to(dev), lay[i]["attn"], self._cfg_s,
+                                positions.to(dev))
+                    for lay, dev in zip(self.layers, self.devices)]
+        q, k, v = split_heads_rope(self._col(x, i, "wq", "bq"),
+                                   self._col(x, i, "wk", "bk"),
+                                   self._col(x, i, "wv", "bv"), self.cfg,
+                                   positions)
+        if self.kv_split is None:
+            return [(q.to(dev), k.to(dev), v.to(dev)) for dev in self.devices]
+        d = self.cfg.head_dim // self.n
+        return [tuple(t[..., s * d:(s + 1) * d].contiguous().to(dev)
+                      for t in (q, k, v))
+                for s, dev in enumerate(self.devices)]
+
+    def out_proj(self, outs, i: int):
+        """Layer ``i``'s output projection of the shards' attention outputs
+        (B, S, H_s, d_s) -> (B, S, D) on the lead device."""
+        ps = [lay[i]["attn"]["wo"] for lay in self.layers]
+        B, S = outs[0].shape[:2]
+        if self.kv_split == "heads":
+            return self.reduce([a.reshape(B, S, -1) @ w
+                                for a, w in zip(outs, ps)])
+        a = (self.shard.all_gather(outs, dim=-1) if self.kv_split
+             else outs[0]).reshape(B, S, -1)
+        if not self._split["wq"]:
+            return a.to(self.devices[0]) @ ps[0]
+        rows = a.shape[-1] // self.n
+        return self.reduce([a[..., s * rows:(s + 1) * rows].to(w.device) @ w
+                            for s, w in enumerate(ps)])
+
+    def split_attention(self, qs, context, valid):
+        """Attention over a cache whose kv heads are not split over the
+        shards: with ``kv_split == "head_dim"`` every shard's partial
+        scores are summed (:func:`head_dim_split_attention`), with None the
+        lead shard attends alone over its whole copy. ``qs``: per-shard
+        (B, T, H, d_s); ``context(s)``: shard s's (k, v) context
+        (B, S, KH, d_s); ``valid``: (B, T, S) bool on the lead device.
+        Returns per-shard (B, T, H, d_s) (the lead's alone with None)."""
+        n = self.n if self.kv_split == "head_dim" else 1
+        ctx = [context(s) for s in range(n)]
+        return head_dim_split_attention(
+            qs[:n], [k for k, _ in ctx], [v for _, v in ctx], valid,
+            self.reduce if n > 1 else (lambda parts: parts[0]))
+
+    # -- feed-forward ------------------------------------------------------------------
+    def ffn(self, g, i: int):
+        """Layer ``i``'s feed-forward of the normed g (B, S, D): the SwiGLU
+        MLP, or MoE in "dense" mode (every expert on every token, as every
+        serving path runs it)."""
+        key = "moe" if self.cfg.moe else "mlp"
+        if not self._split["ffn"]:
+            lp = self.layers[0][i][key]
+            return moe_ffn(g, lp, self.cfg, mode="dense")[0] if self.cfg.moe \
+                else mlp_layer(g, lp)
+        ps = [lay[i][key] for lay in self.layers]
+        if self.cfg.moe:
+            return moe_ffn_sharded(g, ps, self.cfg, self.reduce)
+        return self.reduce([mlp_layer(g.to(dev), p)
+                            for p, dev in zip(ps, self.devices)])
+
+    def block(self, h, i: int, positions, attend):
+        """One layer on the residual stream h (B, S, D): ``attend(qkv)``
+        takes :meth:`qkv`'s per-shard projections, writes the new KV into
+        the cache and returns the per-shard attention outputs."""
+        lp, eps = self.layers[0][i], self.cfg.norm_eps
+        xa = rms_norm(h, lp["norm1"], eps)
+        h = h + self.out_proj(attend(self.qkv(xa, i, positions)), i)
+        return h + self.ffn(rms_norm(h, lp["norm2"], eps), i)

@@ -56,8 +56,20 @@ plain versions. Its chunked prefill (attention families) and its decode
 run plain PyTorch in both tiers, as the reference's do.
 
 The paged backend also swaps a preempted sequence's KV to host memory and
-back (``swap_out`` / ``swap_in``). Not ported: tensor-parallel meshes
-(``NotImplementedError`` naming the ROADMAP item).
+back (``swap_out`` / ``swap_in``).
+
+Tensor parallelism (``mesh=``, a ``(1, N)`` mesh from
+``launch/mesh.py``): :class:`~repro_torch.distributed.sharding.ServeSharding`
+splits the parameters and the KV cache over the N shards and
+:class:`~repro_torch.models.transformer.ServeStack` runs every layer loop
+over them, one shard after another; the residual stream, the sampler and
+its state stay on the lead device, and only token ids reach the host. The
+attention families only (ssm and hybrid: ROADMAP Queue 1 item 11b).
+Kernel dispatch is the reference's: the two paged decode kernels run once
+per shard when N divides the kv heads (``_kernel_sharded``); otherwise the
+cache splits over head_dim and the plain path serves, summing the shards'
+partial scores. Prefill under a mesh runs the plain gather path, and a
+whole prompt goes through the chunked path in one chunk.
 
 Prefill protocol, shared with the engine::
 
@@ -74,17 +86,20 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import ServeSharding
 from repro_torch.kernels.flash_attention.ops import paged_flash_prefill
 from repro_torch.kernels.flash_attention.ref import paged_prefill_attention_ref
-from repro_torch.kernels.paged_attention.ops import (fused_decode_attention,
-                                                     paged_attention)
+from repro_torch.kernels.paged_attention.ops import (
+    fused_decode_attention_sharded, paged_attention_sharded,
+    shardable_kv_heads)
 from repro_torch.kernels.paged_attention.ref import (
-    fused_decode_attention_ref, gather_kv, paged_attention_ref)
+    fused_decode_attention_sharded_ref, gather_kv,
+    paged_attention_sharded_ref)
 from repro_torch.models import LM
-from repro_torch.models.layers import (NEG_INF, chunked_attention, mlp_layer,
-                                       project_qkv, rms_norm)
-from repro_torch.models.moe import moe_ffn
-from repro_torch.models.transformer import _block, layer_params
+from repro_torch.models.layers import (NEG_INF, chunked_attention,
+                                       decode_attention_appended)
+from repro_torch.models.transformer import (ServeStack, _block,
+                                            _scatter_new_kv)
 from repro_torch.serving.kv_cache import OutOfPages, PagedKVCache
 from repro_torch.serving.sampler import (fold_seeds, sample_from_logits,
                                          spec_accept, spec_targets)
@@ -199,24 +214,33 @@ def _spec_accept_and_latch(st, logits, draft):
     return targets, produced, done, st
 
 
-def _ffn(g, lp, cfg):
-    """A layer's feed-forward on serving paths: MoE in "dense" mode, or
-    the SwiGLU MLP."""
-    if cfg.moe:
-        return moe_ffn(g, lp["moe"], cfg, mode="dense")[0]
-    return mlp_layer(g, lp["mlp"])
+def _lead_device(device, shard) -> torch.device:
+    """A backend's device: ``device`` (default: the CUDA card), or under a
+    mesh its lead shard's, which ``device`` must name if given."""
+    if shard is None:
+        return resolve_device(device)
+    if device is not None:
+        want = torch.device(device)
+        if want.type != shard.lead.type or want.index not in (
+                None, shard.lead.index):
+            raise ValueError(f"device {want} is not the mesh's lead device "
+                             f"{shard.lead}")
+    return shard.lead
 
 
-def _chunk_layer(h, lp, cfg, positions, write_attend):
-    """One transformer layer of a prefill chunk: ``write_attend(q, k, v)
-    -> attn_out`` writes the chunk's KV into the cache and attends."""
-    B, S = h.shape[:2]
-    xa = rms_norm(h, lp["norm1"], cfg.norm_eps)
-    q, k, v = project_qkv(xa, lp["attn"], cfg, positions)
-    a = write_attend(q, k, v)
-    h = h + (a.reshape(B, S, -1) @ lp["attn"]["wo"])
-    g = rms_norm(h, lp["norm2"], cfg.norm_eps)
-    return h + _ffn(g, lp, cfg)
+def _causal(q0, n_q: int, n_k: int, device):
+    """(1, n_q, n_k) mask of queries at positions q0.. over keys 0..n_k-1:
+    key j visible to query t iff j <= q0 + t."""
+    qpos = q0 + torch.arange(n_q, device=device)
+    return (torch.arange(n_k, device=device)[None, :] <= qpos[:, None])[None]
+
+
+def _block_visible(lens, T: int, n_k: int):
+    """(B, T, n_k) mask of a verify block: query j of slot b sees keys
+    [0, lens[b] + j + 1)."""
+    dev = lens.device
+    limit = lens.long()[:, None] + 1 + torch.arange(T, device=dev)
+    return torch.arange(n_k, device=dev)[None, None, :] < limit[:, :, None]
 
 
 @dataclass
@@ -243,25 +267,38 @@ class SlotBackend:
 
     def __init__(self, model: LM, params, *, max_slots: int, max_len: int,
                  use_kernel: bool = False, mesh=None, device=None):
-        if mesh is not None:
+        cfg = model.cfg
+        if mesh is not None and cfg.family not in ATTENTION_FAMILIES:
             raise NotImplementedError(
-                "tensor-parallel meshes are not ported yet (ROADMAP Queue 1 "
-                "item 11)")
-        self.device = resolve_device(device)
-        if params["embed"].device != self.device:
+                f"the {cfg.family} family under a tensor-parallel mesh is not "
+                f"ported yet (ROADMAP Queue 1 item 11b)")
+        self.shard = ServeSharding(mesh, cfg) if mesh is not None else None
+        self.device = _lead_device(device, self.shard)
+        if self.shard is None and params["embed"].device != self.device:
             raise ValueError(f"params live on {params['embed'].device}, the "
                              f"backend on {self.device}")
         self.model = model
-        self.params = params
-        self.cfg = model.cfg
+        self.cfg = cfg
         self.max_slots = max_slots
         self.max_len = max_len
         self.use_kernel = use_kernel
-        self.dtype = getattr(torch, self.cfg.param_dtype)
-        self.cache = model.init_cache(max_slots, max_len, device=self.device)
-        self._layers = ([layer_params(params, i)
-                         for i in range(self.cfg.num_layers)]
-                        if self.supports_chunked_prefill else None)
+        self.dtype = getattr(torch, cfg.param_dtype)
+        self.stack = ServeStack(params, cfg, self.shard)
+        if self.shard is None:
+            self.cache = model.init_cache(max_slots, max_len,
+                                          device=self.device)
+            self.cache_shards = [self.cache]
+        else:
+            # (L, B, KH, S, hd) k/v split over the shards; len on the lead
+            shape = (cfg.num_layers, max_slots, cfg.num_kv_heads, max_len,
+                     cfg.head_dim)
+            spec = self.shard.slot_cache_spec("k", shape)
+            self.cache = {"len": torch.zeros((max_slots,), dtype=torch.int32,
+                                             device=self.device)}
+            self.cache_shards = [
+                {"k": k, "v": v} for k, v in zip(
+                    self.shard.zeros(shape, self.dtype, spec),
+                    self.shard.zeros(shape, self.dtype, spec))]
         self.free_slots = list(range(max_slots - 1, -1, -1))
         self.slot_of: dict[str, int] = {}
         self._dec_st = None         # device-resident per-slot decode state
@@ -295,7 +332,7 @@ class SlotBackend:
             chunk = task.remaining
         else:
             chunk = min(max(budget, 1), task.remaining)
-        if task.pos == 0 and chunk == S:
+        if task.pos == 0 and chunk == S and self.shard is None:
             logits = self._one_shot(task.seq_id, task.prompt)
             task.pos = S
             task.chunks += 1
@@ -322,7 +359,7 @@ class SlotBackend:
         slot = self.slot_of[seq_id]
         toks = self._put(prompt, torch.long)[None]
         logits, one = self.model.prefill(
-            self.params, {"tokens": toks}, max_len=self.max_len,
+            self.stack.params[0], {"tokens": toks}, max_len=self.max_len,
             moe_mode="dense", use_kernel=self.use_kernel)
         for key, val in one.items():
             if key == "len":
@@ -331,39 +368,90 @@ class SlotBackend:
                 self.cache[key][:, slot] = val[:, 0]
         return logits[0]
 
+    def _kv(self, i: int):
+        """Layer ``i``'s (k, v) slot caches (B, KH_s, S, hd_s), per
+        shard."""
+        return [(c["k"][i], c["v"][i]) for c in self.cache_shards]
+
     def _compute_chunk(self, task: PrefillTask, chunk: int):
         """One prefill chunk straight into the slot's rows of the stacked
         cache (attention families): the chunk's KV is written at
         [pos, pos + chunk), then its queries attend over the slot's rows,
         masked to [0, pos + chunk)."""
-        cfg, slot, start = self.cfg, self.slot_of[task.seq_id], task.pos
+        st, slot, start = self.stack, self.slot_of[task.seq_id], task.pos
         kv_len = start + chunk
         toks = self._put(task.prompt[start:kv_len], torch.long)[None]
-        h = self.model.embed_inputs(self.params, {"tokens": toks})
+        h = st.embed(toks)
         positions = start + torch.arange(chunk, device=self.device)[None, :]
-        for i, lp in enumerate(self._layers):
-            kc, vc = self.cache["k"][i], self.cache["v"][i]  # (B, KH, S, hd)
+        for i in range(self.cfg.num_layers):
+            def attend(qkv, kv=self._kv(i)):
+                for (_, k, v), (kc, vc) in zip(qkv, kv):
+                    kc[slot, :, start:kv_len] = k[0].transpose(0, 1).to(
+                        self.dtype)
+                    vc[slot, :, start:kv_len] = v[0].transpose(0, 1).to(
+                        self.dtype)
+                rows = [(kc[slot].transpose(0, 1)[None],
+                         vc[slot].transpose(0, 1)[None]) for kc, vc in kv]
+                if st.kv_split == "heads":
+                    return [chunked_attention(q, kr, vr, causal=True,
+                                              q_offset=start, kv_len=kv_len)
+                            for (q, _, _), (kr, vr) in zip(qkv, rows)]
+                return st.split_attention(
+                    [q for q, _, _ in qkv], lambda s: rows[s],
+                    _causal(start, chunk, rows[0][0].shape[1], self.device))
 
-            def write_attend(q, k, v, kc=kc, vc=vc):
-                kc[slot, :, start:kv_len] = k[0].transpose(0, 1).to(self.dtype)
-                vc[slot, :, start:kv_len] = v[0].transpose(0, 1).to(self.dtype)
-                return chunked_attention(
-                    q, kc[slot].transpose(0, 1)[None],
-                    vc[slot].transpose(0, 1)[None], causal=True,
-                    q_offset=start, kv_len=kv_len)
-
-            h = _chunk_layer(h, lp, cfg, positions, write_attend)
-        h = rms_norm(h, self.params["final_norm"], cfg.norm_eps)
+            h = st.block(h, i, positions, attend)
         self.cache["len"][slot] = kv_len
-        return self.model.logits(self.params, h[:, chunk - 1])[0]
+        return st.head(h[:, chunk - 1])[0]
 
     # -- decode -----------------------------------------------------------------
+    def _decode_step(self, tokens):
+        """One decode step of every slot: tokens (max_slots,) on the
+        device -> logits (max_slots, V) on it, the cache updated in place
+        (each layer's new KV written after the loop at position ``len``,
+        as ``transformer.decode_step`` does)."""
+        st = self.stack
+        if self.cfg.family not in ATTENTION_FAMILIES:
+            logits, self.cache = self.model.decode_step(st.params[0], tokens,
+                                                        self.cache)
+            return logits
+        lens = self.cache["len"]
+        lens_s = st.replicate(lens)
+        new = [([], []) for _ in range(st.n)]
+        h = st.embed(tokens[:, None])
+        for i in range(self.cfg.num_layers):
+            def attend(qkv, kv=self._kv(i)):
+                for (_, k, v), (nk, nv) in zip(qkv, new):
+                    nk.append(k[:, 0])
+                    nv.append(v[:, 0])
+                if st.kv_split == "heads":
+                    return [decode_attention_appended(
+                        q, kc, vc, k[:, 0], v[:, 0], prev_len=n)
+                        for (q, k, v), (kc, vc), n in zip(qkv, kv, lens_s)]
+
+                def context(s):
+                    (kc, vc), (_, k, v) = kv[s], qkv[s]
+                    return (torch.cat([kc.transpose(1, 2), k], 1),
+                            torch.cat([vc.transpose(1, 2), v], 1))
+                S = kv[0][0].shape[2]
+                valid = torch.arange(S + 1, device=self.device)[None, :] \
+                    < lens.long()[:, None]
+                valid[:, S] = True                  # the new token itself
+                return st.split_attention([q for q, _, _ in qkv], context,
+                                          valid[:, None])
+
+            h = st.block(h, i, lens[:, None].long(), attend)
+        for c, (nk, nv), n in zip(self.cache_shards, new, lens_s):
+            _scatter_new_kv(c["k"], torch.stack(nk), n)
+            _scatter_new_kv(c["v"], torch.stack(nv), n)
+        self.cache["len"] = lens + 1
+        return st.head(h[:, 0])
+
     def decode_batch(self, tokens_by_slot: np.ndarray):
         """tokens_by_slot: (max_slots,). Steps every slot. Returns the
         (max_slots, V) logits on the host."""
-        logits, self.cache = self.model.decode_step(
-            self.params, self._put(tokens_by_slot, torch.long), self.cache)
-        return _logits_to_host(logits)
+        return _logits_to_host(self._decode_step(
+            self._put(tokens_by_slot, torch.long)))
 
     def _fused_impl(self, st, K):
         """K fused decode+sample+stop-check steps on the device. A slot
@@ -377,8 +465,7 @@ class SlotBackend:
         produced = torch.zeros((B,), dtype=torch.int32, device=self.device)
         out = torch.zeros((K, B), dtype=torch.int32, device=self.device)
         for i in range(K):
-            logits, self.cache = self.model.decode_step(self.params, tokens,
-                                                        self.cache)
+            logits = self._decode_step(tokens)
             live = st["active"] & ~done
             tokens, n_gen, done, produced = _sample_and_latch(
                 st, logits, tokens, n_gen, done, produced, live)
@@ -445,26 +532,33 @@ class SlotBackend:
         position ``pos % Smax`` of its own slot and rewrites that row's own
         value: never out of bounds, and never onto a row this block writes
         (a live slot's wrapped positions lie below its ``lens``)."""
-        cfg = self.cfg
+        st = self.stack
         B, T = tokens_in.shape
-        Smax = self.cache["k"].shape[3]
+        Smax = self.cache_shards[0]["k"].shape[3]
         positions = lens.long()[:, None] + torch.arange(T, device=self.device)
         write = (live[:, None] & (positions < Smax))[..., None, None]
         wpos = positions % Smax
         bidx = torch.arange(B, device=self.device)[:, None]
-        h = self.params["embed"][tokens_in.long()]
-        for i, lp in enumerate(self._layers):
-            kc, vc = self.cache["k"][i], self.cache["v"][i]  # (B, KH, S, hd)
+        idx = list(zip(st.replicate(bidx), st.replicate(wpos),
+                       st.replicate(write), st.replicate(lens)))
+        h = st.embed(tokens_in)
+        for i in range(self.cfg.num_layers):
+            def attend(qkv, kv=self._kv(i)):
+                for (_, k, v), (kc, vc), (b, w, ok, _) in zip(qkv, kv, idx):
+                    for c, new in ((kc, k), (vc, v)):   # new: (B, T, KH, hd)
+                        c[b, :, w] = torch.where(ok, new.to(self.dtype),
+                                                 c[b, :, w])
+                if st.kv_split == "heads":
+                    return [_spec_block_attention(q, kc, vc, n, kv_major=True)
+                            for (q, _, _), (kc, vc), (*_, n) in zip(qkv, kv,
+                                                                    idx)]
+                return st.split_attention(
+                    [q for q, _, _ in qkv],
+                    lambda s: tuple(c.transpose(1, 2) for c in kv[s]),
+                    _block_visible(lens, T, Smax))
 
-            def write_attend(q, k, v, kc=kc, vc=vc):
-                for c, new in ((kc, k), (vc, v)):       # new: (B, T, KH, hd)
-                    c[bidx, :, wpos] = torch.where(write, new.to(self.dtype),
-                                                   c[bidx, :, wpos])
-                return _spec_block_attention(q, kc, vc, lens, kv_major=True)
-
-            h = _chunk_layer(h, lp, cfg, positions, write_attend)
-        h = rms_norm(h, self.params["final_norm"], cfg.norm_eps)
-        return self.model.logits(self.params, h)
+            h = st.block(h, i, positions, attend)
+        return st.head(h)
 
     def spec_verify(self, draft_tokens: np.ndarray, host_state=None):
         """One speculative round's verification: ``draft_tokens`` (B, k)
@@ -516,16 +610,12 @@ class PagedBackend:
         if cfg.family not in ATTENTION_FAMILIES:
             raise ValueError("paged backend supports attention families, "
                              f"not {cfg.family!r}")
-        if mesh is not None:
-            raise NotImplementedError(
-                "tensor-parallel meshes are not ported yet (ROADMAP Queue 1 "
-                "item 11)")
-        self.device = resolve_device(device)
-        if params["embed"].device != self.device:
+        self.shard = ServeSharding(mesh, cfg) if mesh is not None else None
+        self.device = _lead_device(device, self.shard)
+        if self.shard is None and params["embed"].device != self.device:
             raise ValueError(f"params live on {params['embed'].device}, the "
                              f"backend on {self.device}")
         self.model = model
-        self.params = params
         self.cfg = cfg
         self.max_slots = max_slots
         self.max_len = max_len
@@ -538,12 +628,24 @@ class PagedBackend:
         L, KH, hd = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim
         self.dtype = getattr(torch, cfg.param_dtype)
         shape = (L, num_pages, page_size, KH, hd)
-        self.pools = {
-            "k": torch.zeros(shape, dtype=self.dtype, device=self.device),
-            "v": torch.zeros(shape, dtype=self.dtype, device=self.device),
-        }
+        if self.shard is None:
+            self.pool_shards = [{
+                "k": torch.zeros(shape, dtype=self.dtype, device=self.device),
+                "v": torch.zeros(shape, dtype=self.dtype, device=self.device),
+            }]
+        else:
+            # pages split along the kv-head axis (else head_dim); the
+            # host-side allocator is one copy serving every shard
+            spec = self.shard.pool_spec(shape)
+            self.pool_shards = [
+                {"k": k, "v": v} for k, v in zip(
+                    self.shard.zeros(shape, self.dtype, spec),
+                    self.shard.zeros(shape, self.dtype, spec))]
+        self.stack = ServeStack(params, cfg, self.shard)
         self.use_kernel = use_kernel
-        self._layers = [layer_params(params, i) for i in range(L)]
+        # the decode kernels run once per shard when the kv heads split
+        # over the mesh; otherwise the plain head_dim-split path serves
+        self._kernel_sharded = use_kernel and shardable_kv_heads(KH, mesh)
         self.free_slots = list(range(max_slots - 1, -1, -1))
         self.slot_of: dict[str, int] = {}
         self.seq_of: dict[int, str] = {}
@@ -551,6 +653,21 @@ class PagedBackend:
         self._dec_st = None         # device-resident per-slot decode state
         self._dev_tables = None     # device-resident (tables, lens) pair
         self._dev_tables_key = None  # kv.table_version the pair was built at
+
+    @property
+    def pools(self) -> dict:
+        """The page pools {"k", "v"} (L, num_pages, page, KH, hd) of an
+        unsharded backend; under a mesh each shard's are in
+        ``pool_shards``."""
+        if self.shard is not None:
+            raise AttributeError("a sharded backend's pools are per shard: "
+                                 "see pool_shards")
+        return self.pool_shards[0]
+
+    def _kv(self, i: int):
+        """Layer ``i``'s (k, v) page pools (NP, page, KH_s, hd_s), per
+        shard."""
+        return [(p["k"][i], p["v"][i]) for p in self.pool_shards]
 
     # -- capacity -------------------------------------------------------------
     def can_admit(self, n_prompt: int) -> bool:
@@ -563,28 +680,33 @@ class PagedBackend:
         return torch.as_tensor(np.asarray(x), dtype=dtype, device=self.device)
 
     # -- attention dispatch ----------------------------------------------------
-    def _attend(self, q, kp, vp, tables, lens):
-        if self.use_kernel:
-            return paged_attention(q, kp, vp, tables, lens)
-        return paged_attention_ref(q, kp, vp, tables, lens)
+    def _attend(self, qs, kv, tables, lens):
+        """Per-shard decode attention (kv heads split over the shards)."""
+        fn = paged_attention_sharded if self.use_kernel \
+            else paged_attention_sharded_ref
+        return fn(qs, [k for k, _ in kv], [v for _, v in kv], tables, lens)
 
     def _prefill_attend(self, q, kp, vp, tables, start, kv_len):
-        if self.use_kernel:
+        """Chunked-prefill attention: the paged flash-prefill kernel on one
+        device; under a mesh the plain gather path, as the reference."""
+        if self.use_kernel and self.shard is None:
             return paged_flash_prefill(q, kp, vp, tables, start, kv_len)
         return paged_prefill_attention_ref(q, kp, vp, tables, start, kv_len)
 
-    def _tail_attend(self, q, kp, vp, tables, lens, kt, vt, tail_lens):
-        if self.use_kernel:
-            return fused_decode_attention(q, kp, vp, tables, lens, kt, vt,
-                                          tail_lens)
-        return fused_decode_attention_ref(q, kp, vp, tables, lens, kt, vt,
-                                          tail_lens)
+    def _tail_attend(self, qs, kv, tables, lens, kts, vts, tail_lens):
+        """Per-shard decode attention over pages plus tails."""
+        fn = fused_decode_attention_sharded if self.use_kernel \
+            else fused_decode_attention_sharded_ref
+        return fn(qs, [k for k, _ in kv], [v for _, v in kv], tables, lens,
+                  kts, vts, tail_lens)
 
     def _cow(self, src: int, dst: int) -> None:
         """Copy-on-write, in place: duplicate page ``src`` into ``dst``
-        across every layer before a write diverges a shared page."""
-        for pool in self.pools.values():
-            pool[:, dst] = pool[:, src]
+        across every layer (and shard) before a write diverges a shared
+        page."""
+        for pools in self.pool_shards:
+            for pool in pools.values():
+                pool[:, dst] = pool[:, src]
 
     # -- prefill protocol --------------------------------------------------------
     def start_prefill(self, seq_id: str, prompt: list) -> PrefillTask:
@@ -603,7 +725,7 @@ class PagedBackend:
         S = len(task.prompt)
         chunk = task.remaining if budget is None \
             else min(max(budget, 1), task.remaining)
-        if (task.pos == 0 and chunk == S
+        if (task.pos == 0 and chunk == S and self.shard is None
                 and not self.kv.enable_prefix_cache):
             # whole-prompt self-attention, whole-page KV writes
             logits = self._one_shot(task.seq_id, task.prompt)
@@ -634,24 +756,23 @@ class PagedBackend:
         toks = torch.zeros((1, n_pages * ps), dtype=torch.long,
                            device=self.device)
         toks[0, :S] = self._put(prompt, torch.long)
-        h = self.model.embed_inputs(self.params, {"tokens": toks})
+        h = self.stack.embed(toks)
         positions = torch.arange(n_pages * ps, device=self.device)[None, :]
-        for i, lp in enumerate(self._layers):
+        for i, lp in enumerate(self.stack.layers[0]):
             h, (k, v), _ = _block(h, lp, cfg, positions, moe_mode="dense",
                                   return_kv=True)
             self.pools["k"][i][table] = \
                 k[0].reshape(n_pages, ps, *k.shape[2:]).to(self.dtype)
             self.pools["v"][i][table] = \
                 v[0].reshape(n_pages, ps, *v.shape[2:]).to(self.dtype)
-        h = rms_norm(h, self.params["final_norm"], cfg.norm_eps)
-        return self.model.logits(self.params, h[:, S - 1])[0]
+        return self.stack.head(h[:, S - 1])[0]
 
     def _compute_chunk(self, task: PrefillTask, chunk: int):
         """One prefill chunk against the page pool: the chunk's KV is
         written first, then its queries attend over [0, pos + chunk) of the
         sequence's pages -- cached prefix pages are read, never
         recomputed."""
-        cfg, ps = self.cfg, self.page_size
+        st, ps = self.stack, self.page_size
         pos = task.pos
         # COW any shared page this chunk writes into (only possible for the
         # recomputed final token of a page-aligned full prefix hit)
@@ -666,43 +787,57 @@ class PagedBackend:
         n_ctx = self.kv.pages_needed(pos + chunk)
         ctx_table = self._put(np.asarray(table[:n_ctx], np.int32)[None])
         toks = self._put(task.prompt[pos:pos + chunk], torch.long)[None]
-        h = self.model.embed_inputs(self.params, {"tokens": toks})
+        idx = list(zip(st.replicate(write_pages), st.replicate(write_offs),
+                       st.replicate(ctx_table)))
+        h = st.embed(toks)
         positions = pos + torch.arange(chunk, device=self.device)[None, :]
-        for i, lp in enumerate(self._layers):
-            kp, vp = self.pools["k"][i], self.pools["v"][i]
+        for i in range(self.cfg.num_layers):
+            def attend(qkv, kv=self._kv(i)):
+                for (_, k, v), (kp, vp), (wp, wo, _) in zip(qkv, kv, idx):
+                    kp[wp, wo] = k[0].to(self.dtype)
+                    vp[wp, wo] = v[0].to(self.dtype)
+                if st.kv_split == "heads":
+                    return [self._prefill_attend(q, kp, vp, t, pos,
+                                                 pos + chunk)
+                            for (q, _, _), (kp, vp), (*_, t) in zip(qkv, kv,
+                                                                    idx)]
+                return st.split_attention(
+                    [q for q, _, _ in qkv],
+                    lambda s: tuple(gather_kv(c, idx[s][2]) for c in kv[s]),
+                    _causal(pos, chunk, n_ctx * ps, self.device))
 
-            def write_attend(q, k, v, kp=kp, vp=vp):
-                kp[write_pages, write_offs] = k[0].to(self.dtype)
-                vp[write_pages, write_offs] = v[0].to(self.dtype)
-                return self._prefill_attend(q, kp, vp, ctx_table, pos,
-                                            pos + chunk)
-
-            h = _chunk_layer(h, lp, cfg, positions, write_attend)
-        h = rms_norm(h, self.params["final_norm"], cfg.norm_eps)
-        return self.model.logits(self.params, h[:, chunk - 1])[0]
+            h = st.block(h, i, positions, attend)
+        return st.head(h[:, chunk - 1])[0]
 
     # -- decode -----------------------------------------------------------------
     def _decode_forward(self, tokens, tables, lens, page_idx, off):
         """One decode-step forward against the page pool: write each slot's
         new KV at (page_idx, off) in place, attend over [0, lens + 1).
         Returns logits (B, V) on the device."""
-        cfg = self.cfg
-        B = tokens.shape[0]
-        h = self.params["embed"][tokens.long()][:, None]
-        positions = lens[:, None]
+        st = self.stack
         ctx = lens + 1
-        for i, lp in enumerate(self._layers):
-            kp, vp = self.pools["k"][i], self.pools["v"][i]
-            xa = rms_norm(h, lp["norm1"], cfg.norm_eps)
-            q, k, v = project_qkv(xa, lp["attn"], cfg, positions)
-            kp[page_idx, off] = k[:, 0].to(self.dtype)
-            vp[page_idx, off] = v[:, 0].to(self.dtype)
-            a = self._attend(q[:, 0], kp, vp, tables, ctx)
-            h = h + (a.reshape(B, 1, -1) @ lp["attn"]["wo"])
-            g = rms_norm(h, lp["norm2"], cfg.norm_eps)
-            h = h + _ffn(g, lp, cfg)
-        h = rms_norm(h, self.params["final_norm"], cfg.norm_eps)
-        return self.model.logits(self.params, h[:, 0])
+        tabs, ctxs = st.replicate(tables), st.replicate(ctx)
+        idx = list(zip(st.replicate(page_idx), st.replicate(off)))
+        n_k = tables.shape[1] * self.page_size
+        h = st.embed(tokens[:, None])
+        for i in range(self.cfg.num_layers):
+            def attend(qkv, kv=self._kv(i)):
+                for (_, k, v), (kp, vp), (pi, o) in zip(qkv, kv, idx):
+                    kp[pi, o] = k[:, 0].to(self.dtype)
+                    vp[pi, o] = v[:, 0].to(self.dtype)
+                qs = [q[:, 0] for q, _, _ in qkv]
+                if st.kv_split == "heads":
+                    return [a[:, None] for a in self._attend(qs, kv, tabs,
+                                                             ctxs)]
+                valid = torch.arange(n_k, device=self.device)[None, :] \
+                    < ctx.long()[:, None]
+                return st.split_attention(
+                    [q for q, _, _ in qkv],
+                    lambda s: tuple(gather_kv(c, tabs[s]) for c in kv[s]),
+                    valid[:, None])
+
+            h = st.block(h, i, lens[:, None], attend)
+        return st.head(h[:, 0])
 
     def _host_tables(self) -> tuple[np.ndarray, np.ndarray]:
         """(max_slots, PPS) block tables and (max_slots,) lengths of the
@@ -772,40 +907,56 @@ class PagedBackend:
         out-of-bounds ``mode="drop"``). Emits the same token stream as
         :meth:`_fused_impl`. Returns (tokens (K, B), produced, done, st,
         lens)."""
-        cfg, ps = self.cfg, self.page_size
+        ps, tp = self.page_size, self.stack
         B = st["tokens"].shape[0]
-        L, KH, hd = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim
-        dev = self.device
-        k_tails = torch.zeros((L, B, K, KH, hd), dtype=self.dtype, device=dev)
-        v_tails = torch.zeros_like(k_tails)
+        L, dev = self.cfg.num_layers, self.device
+        # (L, B, K, KH_s, hd_s) tails beside each shard's pools
+        tails = [tuple(torch.zeros((L, B, K, *p[n].shape[3:]),
+                                   dtype=self.dtype, device=p[n].device)
+                       for n in ("k", "v")) for p in self.pool_shards]
+        tabs, lens0s = tp.replicate(tables), tp.replicate(lens0)
+        bidxs = tp.replicate(torch.arange(B, device=dev))
+        n_k = tables.shape[1] * ps
         tokens, n_gen = st["tokens"], st["n_gen"]
         done = torch.zeros((B,), dtype=torch.bool, device=dev)
         produced = torch.zeros((B,), dtype=torch.int32, device=dev)
         out = torch.zeros((K, B), dtype=torch.int32, device=dev)
-        bidx = torch.arange(B, device=dev)
         for i in range(K):
             live = st["active"] & ~done
             # ``produced`` doubles as the tail write cursor: slot b's valid
             # tail rows are [0, produced[b]) and this step writes row
             # produced[b] (dead slots overwrite that row; their outputs are
             # discarded by the live mask)
-            h = self.params["embed"][tokens.long()][:, None]
+            h = tp.embed(tokens[:, None])
             positions = (lens0 + produced)[:, None]
             tail_lens = produced + 1
-            row = produced.long()
-            for l, lp in enumerate(self._layers):
-                xa = rms_norm(h, lp["norm1"], cfg.norm_eps)
-                q, k, v = project_qkv(xa, lp["attn"], cfg, positions)
-                k_tails[l][bidx, row] = k[:, 0].to(self.dtype)
-                v_tails[l][bidx, row] = v[:, 0].to(self.dtype)
-                a = self._tail_attend(q[:, 0], self.pools["k"][l],
-                                      self.pools["v"][l], tables, lens0,
-                                      k_tails[l], v_tails[l], tail_lens)
-                h = h + (a.reshape(B, 1, -1) @ lp["attn"]["wo"])
-                g = rms_norm(h, lp["norm2"], cfg.norm_eps)
-                h = h + _ffn(g, lp, cfg)
-            h = rms_norm(h, self.params["final_norm"], cfg.norm_eps)
-            logits = self.model.logits(self.params, h[:, 0])
+            tls, rows = tp.replicate(tail_lens), tp.replicate(produced.long())
+            for l in range(L):
+                def attend(qkv, kv=self._kv(l)):
+                    for (_, k, v), (kt, vt), b, r in zip(qkv, tails, bidxs,
+                                                         rows):
+                        kt[l][b, r] = k[:, 0].to(self.dtype)
+                        vt[l][b, r] = v[:, 0].to(self.dtype)
+                    qs = [q[:, 0] for q, _, _ in qkv]
+                    if tp.kv_split == "heads":
+                        return [a[:, None] for a in self._tail_attend(
+                            qs, kv, tabs, lens0s, [t[0][l] for t in tails],
+                            [t[1][l] for t in tails], tls)]
+                    ok = torch.cat([
+                        torch.arange(n_k, device=dev)[None, :]
+                        < lens0.long()[:, None],
+                        torch.arange(K, device=dev)[None, :]
+                        < tail_lens.long()[:, None]], dim=1)
+
+                    def context(s):
+                        return tuple(torch.cat([gather_kv(c, tabs[s]), t[l]],
+                                               dim=1)
+                                     for c, t in zip(kv[s], tails[s]))
+                    return tp.split_attention([q for q, _, _ in qkv],
+                                              context, ok[:, None])
+
+                h = tp.block(h, l, positions, attend)
+            logits = tp.head(h[:, 0])
             tokens, n_gen, done, produced = _sample_and_latch(
                 st, logits, tokens, n_gen, done, produced, live)
             out[i] = tokens
@@ -816,8 +967,10 @@ class PagedBackend:
         page_slot = torch.clamp(pos // ps, max=tables.shape[1] - 1).long()
         page_idx = torch.where(valid, tables.gather(1, page_slot), 0).long()
         off = torch.where(valid, pos % ps, 0).long()
-        self.pools["k"][:, page_idx, off] = k_tails
-        self.pools["v"][:, page_idx, off] = v_tails
+        for p, t, pi, o in zip(self.pool_shards, tails,
+                               tp.replicate(page_idx), tp.replicate(off)):
+            p["k"][:, pi, o] = t[0]
+            p["v"][:, pi, o] = t[1]
         st = dict(st, tokens=tokens, n_gen=n_gen)
         return out, produced, done, st, lens0 + produced
 
@@ -940,28 +1093,34 @@ class PagedBackend:
         offset 0, the page slot clamped to the last table column), then
         query j attends [0, lens + j + 1) over the first ``n_ctx`` pages of
         its table, gathered. Returns logits (B, T, V) float32."""
-        cfg, ps = self.cfg, self.page_size
+        st, ps = self.stack, self.page_size
         T = tokens_in.shape[1]
         positions = lens.long()[:, None] + torch.arange(T, device=self.device)
         page_slot = torch.clamp(positions // ps, max=tables.shape[1] - 1)
         live = live[:, None]
         page_idx = torch.where(live, tables.gather(1, page_slot), 0).long()
         off = torch.where(live, positions % ps, 0)
-        ctx = tables[:, :n_ctx]
-        h = self.params["embed"][tokens_in.long()]
-        for i, lp in enumerate(self._layers):
-            kp, vp = self.pools["k"][i], self.pools["v"][i]
+        idx = list(zip(st.replicate(page_idx), st.replicate(off),
+                       st.replicate(tables[:, :n_ctx]), st.replicate(lens)))
+        h = st.embed(tokens_in)
+        for i in range(self.cfg.num_layers):
+            def attend(qkv, kv=self._kv(i)):
+                for (_, k, v), (kp, vp), (pi, o, _, _) in zip(qkv, kv, idx):
+                    kp[pi, o] = k.to(self.dtype)
+                    vp[pi, o] = v.to(self.dtype)
+                if st.kv_split == "heads":
+                    return [_spec_block_attention(
+                        q, gather_kv(kp, c), gather_kv(vp, c), n,
+                        kv_major=False)
+                        for (q, _, _), (kp, vp), (_, _, c, n) in zip(qkv, kv,
+                                                                      idx)]
+                return st.split_attention(
+                    [q for q, _, _ in qkv],
+                    lambda s: tuple(gather_kv(c, idx[s][2]) for c in kv[s]),
+                    _block_visible(lens, T, n_ctx * ps))
 
-            def write_attend(q, k, v, kp=kp, vp=vp):
-                kp[page_idx, off] = k.to(self.dtype)
-                vp[page_idx, off] = v.to(self.dtype)
-                return _spec_block_attention(q, gather_kv(kp, ctx),
-                                             gather_kv(vp, ctx), lens,
-                                             kv_major=False)
-
-            h = _chunk_layer(h, lp, cfg, positions, write_attend)
-        h = rms_norm(h, self.params["final_norm"], cfg.norm_eps)
-        return self.model.logits(self.params, h)
+            h = st.block(h, i, positions, attend)
+        return st.head(h)
 
     def _prepare_verify(self, T: int, force: bool) -> None:
         """Host-side prep of a verify block of T tokens: copy-on-write for
@@ -1017,8 +1176,10 @@ class PagedBackend:
         n_tokens = self.kv.length(seq_id)
         n_pages = self.kv.pages_needed(n_tokens)
         table = self._put(self.kv._tables[seq_id][:n_pages], torch.long)
-        return {"k": self.pools["k"][:, table].cpu(),
-                "v": self.pools["v"][:, table].cpu(), "n_tokens": n_tokens}
+        parts = [{n: pool[:, table.to(pool.device)] for n, pool in p.items()}
+                 for p in self.pool_shards]
+        kv = parts[0] if self.shard is None else self.shard.gather_pools(parts)
+        return {"k": kv["k"].cpu(), "v": kv["v"].cpu(), "n_tokens": n_tokens}
 
     def swap_in(self, seq_id: str, n_tokens: int, blob: dict) -> None:
         """Rebind a swapped-out sequence: reserve a slot, allocate fresh
@@ -1032,8 +1193,11 @@ class PagedBackend:
         self.slot_of[seq_id] = slot
         self.seq_of[slot] = seq_id
         pages = self._put(self.kv.allocate(seq_id, n_tokens), torch.long)
-        for name, pool in self.pools.items():
-            pool[:, pages] = blob[name].to(self.device)
+        kv = {"k": blob["k"], "v": blob["v"]}
+        parts = [kv] if self.shard is None else self.shard.shard_pools(kv)
+        for pools, part in zip(self.pool_shards, parts):
+            for name, pool in pools.items():
+                pool[:, pages.to(pool.device)] = part[name].to(pool.device)
         self.decoding.add(seq_id)
 
     # -- lifecycle -----------------------------------------------------------------

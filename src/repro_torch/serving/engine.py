@@ -46,8 +46,12 @@ contiguous cache row per slot) and ``backend="paged"`` (the attention
 families dense, moe and vlm; prefix cache, page pool). The audio family
 is an encoder: it is served by ``serving/embedding.py``, not here.
 
-Not ported: the tensor-parallel ``mesh`` (``NotImplementedError`` naming
-the ROADMAP item).
+Tensor-parallel serving (``mesh``, a ``(1, N)`` mesh from
+``launch/mesh.py``): both backends (and a speculating engine's draft
+backend) split the model over the mesh's ``model`` axis; see
+``serving/backends.py``. The attention families only: ssm and hybrid
+models under a mesh raise ``NotImplementedError`` (ROADMAP Queue 1 item
+11b).
 """
 from __future__ import annotations
 
@@ -81,7 +85,8 @@ class EngineConfig:
     page_size: int = 64
     num_pages: int | None = None
     use_kernel: bool = False
-    # tensor-parallel serving: not ported yet, must stay None
+    # tensor-parallel serving: a (1, N) launch.mesh.Mesh (make_local_mesh);
+    # params, KV and decode kernels split over its "model" axis
     mesh: object | None = None
     max_prefills_per_step: int = 4
     # prompt tokens computed per engine step across all in-flight prefills;
@@ -175,28 +180,27 @@ class ContinuousBatchingEngine:
                  clock=None, *, draft_model: LM | None = None,
                  draft_params=None, device=None):
         """``device``: where the backends keep their caches; default the
-        CUDA device (RuntimeError without a card). ``params`` (and
-        ``draft_params``, for speculative decoding) must live there."""
+        CUDA device (RuntimeError without a card), or under a mesh its lead
+        device. ``params`` (and ``draft_params``, for speculative decoding)
+        must live there; under a mesh they are split over its shards."""
         self.model = model
         self.cfg = cfg or EngineConfig()
         self.clock = clock or _RealClock()
-        if self.cfg.mesh is not None:
-            raise NotImplementedError("tensor-parallel meshes are not ported "
-                                      "yet (ROADMAP Queue 1 item 11)")
+        mesh = self.cfg.mesh
         if self.cfg.backend == "paged":
             self.backend = PagedBackend(
                 model, params, max_slots=self.cfg.max_slots,
                 max_len=self.cfg.max_seq_len, page_size=self.cfg.page_size,
                 num_pages=self.cfg.num_pages, use_kernel=self.cfg.use_kernel,
                 enable_prefix_cache=self.cfg.enable_prefix_cache,
-                device=device)
+                mesh=mesh, device=device)
         else:
             if self.cfg.enable_prefix_cache:
                 raise ValueError("prefix caching requires backend='paged'")
             self.backend = SlotBackend(
                 model, params, max_slots=self.cfg.max_slots,
                 max_len=self.cfg.max_seq_len, use_kernel=self.cfg.use_kernel,
-                device=device)
+                mesh=mesh, device=device)
         self.draft_backend = None
         if self.cfg.spec_tokens > 0:
             if draft_model is None:
@@ -218,12 +222,12 @@ class ContinuousBatchingEngine:
                     max_len=self.cfg.max_seq_len,
                     page_size=self.cfg.page_size,
                     num_pages=self.cfg.num_pages,
-                    use_kernel=self.cfg.use_kernel, device=device)
+                    use_kernel=self.cfg.use_kernel, mesh=mesh, device=device)
             else:
                 self.draft_backend = SlotBackend(
                     draft_model, draft_params, max_slots=self.cfg.max_slots,
                     max_len=self.cfg.max_seq_len,
-                    use_kernel=self.cfg.use_kernel, device=device)
+                    use_kernel=self.cfg.use_kernel, mesh=mesh, device=device)
         if self.cfg.preempt_swap and self.cfg.backend != "paged":
             raise ValueError("preempt_swap requires backend='paged'")
         kwargs = {}

@@ -175,13 +175,33 @@ def test_engine_token_identical_to_jax(variant, llama, port_llama,
         assert teng.cache_stats()["hit_tokens"] > 0
 
 
-@pytest.mark.parametrize("overrides", [dict(mesh=object())], ids=["mesh"])
-def test_unported_engine_settings_name_their_roadmap_item(port_llama,
-                                                          overrides):
+@pytest.mark.parametrize("case", ["mesh", "mesh-ssm"])
+def test_unported_engine_settings_name_their_roadmap_item(port_llama, case):
+    """The tensor-parallel mesh is ported: a mesh engine serves, its
+    tokens those of the 1-device engine (``mesh``). What stays unported
+    under a mesh, the ssm and hybrid families, raises naming its ROADMAP
+    item (``mesh-ssm``)."""
+    from repro_torch.launch.mesh import make_local_mesh
+    mesh = make_local_mesh(1, 4, devices=["cpu"] * 4)
+    if case == "mesh-ssm":
+        ssm = make_model(reduced(REGISTRY["mamba2-130m"]))
+        with pytest.raises(NotImplementedError, match="ROADMAP.*item 11b"):
+            ContinuousBatchingEngine(
+                ssm, ssm.init_params(torch.Generator().manual_seed(0)),
+                EngineConfig(mesh=mesh), device="cpu")
+        return
     tmodel, tparams = port_llama
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ContinuousBatchingEngine(tmodel, tparams, EngineConfig(**overrides),
-                                 device="cpu")
+    outs = []
+    for m in (None, mesh):
+        eng = ContinuousBatchingEngine(tmodel, tparams, EngineConfig(mesh=m),
+                                       device="cpu")
+        for i in range(2):
+            eng.add_request(InferenceRequest(
+                model="m", prompt_tokens=list(range(3, 13 + 5 * i)),
+                request_id=f"r{i}", sampling=SamplingParams(max_tokens=6)))
+        outs.append({o.request_id: o.output_tokens
+                     for o in eng.run_to_completion()})
+    assert outs[0] == outs[1] and len(outs[1]) == 2
 
 
 def test_engine_config_defaults_match_jax():
