@@ -39,7 +39,8 @@ package. Phases, each of which raises on a failed check (exit code 1):
    1024-token prefix through the fused K=8 path with chunked prefill and
    the prefix cache; a decode-only window of the same workload, timed and
    then traced with torch.profiler (device time by kernel group, idle
-   share); one prefill step (a 512-token chunk at 1024) timed and traced
+   share); the same window at K=1 (a host sync every step, for phase
+   9a); one prefill step (a 512-token chunk at 1024) timed and traced
    the same way; 2 requests through the per-step path; then a
    teacher-forced comparison of the kernel tier against the plain tier
    (prefill chunks + decode steps). The launch counters are set to 0 just
@@ -135,7 +136,30 @@ package. Phases, each of which raises on a failed check (exit code 1):
       shard), then teacher-forced: free runs with their routing flips
       reported, and the mesh routed by the 1-device decisions held to
       LOGITS_TOL.
-9. A ``{"kernels": [...]}`` line (each kernel's phase-8a launches as
+9. The control plane and the cost model (``repro_torch.core``,
+   ``repro_torch.serving.costmodel`` with its committed H100 constants):
+   a. the model against phase 3's llama3.2-3b windows: for K=8, K=1 and
+      the prefill chunk the roofline term, the prediction, the measured
+      host-clock and device time and their ratios (the per-step path's
+      step beside them, a different path), the overhead terms fitted to
+      this run (``step(K) = roofline + dispatch + host_sync / K``), the
+      chunk's implied ``mfu``; ``ServeSharding.all_reduce`` of four
+      (8, 3072) bf16 shards timed (COLLECTIVE_LAUNCH) and phase 5's swap
+      rate beside HOST_IO_BW. Fails if a prediction is not finite and
+      positive or a roofline term is above the measured device time;
+   b. phi3.5-moe (phase 6a's 16 layers and settings) held out: the
+      predicted decode step over phase 6a's measured one (printed, no
+      gate: the host clock spreads 1.3 to 1.8 times between runs);
+   c. ``examples/federated_serving.py``'s scenario and the batch control
+      plane of ``examples/batch_inference.py`` on the port's DES at the
+      paper's sizes (llama3.3-70b, 8 cards an instance, sophia +
+      polaris): the selection rules, a 400-request burst to 2 sophia
+      instances, a sophia outage served by polaris, an interactive stream
+      jumping a 96-request batch flood (preemptions), 500 JSONL lines
+      through ``FirstClient.create_batch``; rates printed as modelled by
+      the DES, with its host wall time.
+10. A ``{"metrics": ...}`` line (phase 9's under ``core_metrics``), a
+   ``{"kernels": [...]}`` line (each kernel's phase-8a launches as
    ``tp_launches``), the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
 """
@@ -945,10 +969,11 @@ def make_requests(n, prefix_len, tail_lens, max_tokens, vocab, seed,
     return out
 
 
-def drive(torch, engine, reqs):
+def drive(torch, engine, reqs, counts=None):
     """Run the engine to completion, timing each step on the host clock
     (every step ends in a device->host sync of its sampled ids). Returns
-    (outputs, prefill seconds, decode-only seconds, decode-only tokens)."""
+    (outputs, prefill seconds, decode-only seconds, decode-only tokens);
+    ``counts["decode_steps"]``, where given, counts the decode-only steps."""
     for r in reqs:
         engine.add_request(r)
     outs, t_prefill, t_decode, n_decode = [], 0.0, 0.0, 0
@@ -964,6 +989,8 @@ def drive(torch, engine, reqs):
         else:
             t_decode += dt
             n_decode += engine.stats["decode_tokens"] - d0
+            if counts is not None:
+                counts["decode_steps"] = counts.get("decode_steps", 0) + 1
     return outs, t_prefill, t_decode, n_decode
 
 
@@ -1049,15 +1076,31 @@ def profile_decode(torch, engine, reqs, steps=2, on_trace=None):
         engine.step()
     check(len(engine.running) == len(reqs), "profile: requests not running")
     K = engine.cfg.decode_steps_per_sync
+    # mean context of the timed and of the traced window: each step
+    # attends over the positions held at its start plus its own
+    ctx0 = statistics.fmean(len(r.req.prompt_tokens) + len(r.output_tokens)
+                            for r in engine.running.values())
+    window_ctx = {"decode_batch": len(reqs),
+                  "decode_mean_ctx": ctx0 + (steps * K + 1) / 2,
+                  "decode_traced_mean_ctx": ctx0 + steps * K
+                  + (steps * K + 1) / 2}
 
     def window():
+        # no collector pass inside the window: earlier traces' events sit
+        # in reference cycles, and collecting them costs tens of ms
         d0 = engine.stats["decode_tokens"]
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(steps):
-            engine.step()
-        torch.cuda.synchronize()
-        return time.perf_counter() - t0, engine.stats["decode_tokens"] - d0
+        gc.collect()
+        gc.disable()
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                engine.step()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            gc.enable()
+        return wall, engine.stats["decode_tokens"] - d0
 
     wall, n_tok = window()
     torch.cuda.reset_peak_memory_stats()
@@ -1081,11 +1124,12 @@ def profile_decode(torch, engine, reqs, steps=2, on_trace=None):
               "device activity)")
         return {"decode_window_tok_s": n_tok / wall,
                 "decode_step_wall_ms": wall_ms,
-                "decode_step_device_ms": None, "device_idle_share": None}
+                "decode_step_device_ms": None, "device_idle_share": None,
+                **window_ctx}
     idle = 1.0 - busy_ms / wall_ms
     print(f"  device busy {busy_ms:.3f} ms a step: idle share {idle:.3f}")
     print_breakdown(by_group, by_name, by_port, n_steps, "a step")
-    return {"decode_window_tok_s": n_tok / wall,
+    return {**window_ctx, "decode_window_tok_s": n_tok / wall,
             "decode_step_wall_ms": wall_ms, "decode_step_device_ms": busy_ms,
             "device_idle_share": idle,
             "device_ms_by_group": {g: us / 1e3 / n_steps
@@ -1111,18 +1155,23 @@ def profile_prefill(torch, engine, reqs, step, what):
         check(engine.has_work(), f"prefill profile: {req.request_id} "
               f"finished before step {step}")
         p0 = engine.stats["prefill_tokens"]
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        if traced:
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
+        gc.collect()    # as in profile_decode's window
+        gc.disable()
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if traced:
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    engine.step()
+                    torch.cuda.synchronize()
+            else:
+                prof = None
                 engine.step()
                 torch.cuda.synchronize()
-        else:
-            prof = None
-            engine.step()
-            torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+            wall = time.perf_counter() - t0
+        finally:
+            gc.enable()
         check(not engine.has_work(), f"prefill profile: {req.request_id} "
               f"not finished at step {step}")
         return wall, engine.stats["prefill_tokens"] - p0, prof
@@ -1242,6 +1291,13 @@ def run_engine(torch, dev):
                                         device=dev),
         make_requests(8, 1024, tails, 64, V, seed=3)))
     torch.cuda.empty_cache()
+    # -- for phase 9a: the same window with a host sync after every step --
+    metrics["k1_window"] = profile_decode(
+        torch, ContinuousBatchingEngine(
+            model, params,
+            EngineConfig(**dict(ecfg, decode_steps_per_sync=1)), device=dev),
+        make_requests(8, 1024, tails, 64, V, seed=3), steps=16)
+    torch.cuda.empty_cache()
     # -- prefill window: the third 512-token chunk of a 1536-token prompt,
     # at q_start 1024 (phase 2's main prefill shape) --
     metrics.update(profile_prefill(
@@ -1257,8 +1313,13 @@ def run_engine(torch, dev):
         model, params, EngineConfig(**dict(ecfg, fused_decode=False)),
         device=dev)
     _build.reset_launches()
-    outs2, _, _, _ = drive(torch, eng2, reqs2)
+    counts = {}
+    outs2, _, t_dec2, n_dec2 = drive(torch, eng2, reqs2, counts)
     step_launches = dict(_build.LAUNCHES)
+    metrics["per_step_path"] = {
+        "sequences": 2, "decode_steps": counts["decode_steps"],
+        "decode_step_wall_ms": t_dec2 * 1e3 / counts["decode_steps"],
+        "decode_tok_s": n_dec2 / t_dec2}
     print(f"  per-step path launches {step_launches}")
     check(len(outs2) == 2 and all(len(o.output_tokens) == 16 for o in outs2),
           "per-step path: requests did not finish with 16 tokens")
@@ -3309,6 +3370,313 @@ def run_tensor_parallel(torch, dev, one_device):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the control plane and the cost model on the card
+# ---------------------------------------------------------------------------
+
+COLLECTIVE_SHAPE = (8, 3072)     # a decode step's activations, llama3.2-3b
+COLLECTIVE_CALLS = 200
+
+
+def fit_overheads(s8, r8, s1, r1):
+    """``dispatch`` and ``host_sync`` (ms) of ``step(K) = roofline +
+    dispatch + host_sync / K`` through the K = 8 and K = 1 windows'
+    measured host-clock steps ``s`` and roofline terms ``r``. A sync
+    cannot cost less than nothing: where the K = 1 step is not the longer
+    one, the least-squares fit with ``host_sync >= 0`` is ``host_sync =
+    0`` and ``dispatch`` the mean of the two windows' overheads."""
+    host_sync = (s1 - r1 - (s8 - r8)) * 8 / 7
+    if host_sync < 0:
+        return ((s8 - r8) + (s1 - r1)) / 2, 0.0
+    return s8 - r8 - host_sync / 8, host_sync
+
+
+def collective_ms(torch, dev):
+    """Median host-clock time of ``ServeSharding.all_reduce`` over four
+    shards on the one card (the port's reduce: copy to the lead device and
+    sum in float32, not NCCL), with the sum checked."""
+    from repro_torch.configs import REGISTRY
+    from repro_torch.distributed.sharding import ServeSharding
+    sh = ServeSharding(tp_mesh(dev), REGISTRY["llama3.2-3b"])
+    g = torch.Generator(device=dev).manual_seed(9)
+    parts = [torch.randn(COLLECTIVE_SHAPE, generator=g, device=dev,
+                         dtype=torch.bfloat16) for _ in range(TP_SHARDS)]
+    want = sum(p.float() for p in parts).to(torch.bfloat16)
+    check(all(torch.equal(o, want) for o in sh.all_reduce(parts)),
+          "9a: all_reduce is not the sum of the shards")
+    times = []
+    for i in range(COLLECTIVE_CALLS + 20):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sh.all_reduce(parts)
+        torch.cuda.synchronize()
+        if i >= 20:
+            times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def run_cost_model(torch, dev, engine, swap, moe):
+    """9a and 9b: the port's cost model (committed constants) against the
+    engine windows phases 3, 5 and 6a measured in this run."""
+    from repro_torch.configs import REGISTRY
+    from repro_torch.serving import costmodel as cm
+
+    cfg = REGISTRY["llama3.2-3b"]
+    cost = cm.InstanceCost(cfg=cfg, chips=1)
+    print(f"phase 9a: the cost model (committed constants: peak "
+          f"{cm.PEAK_FLOPS:.4g} FLOP/s, HBM {cm.HBM_BW:.4g} B/s, dispatch "
+          f"{cm.DISPATCH_OVERHEAD * 1e3:.3f} ms, host sync "
+          f"{cm.HOST_SYNC_OVERHEAD * 1e3:.3f} ms) against the engine: "
+          f"{cfg.name} whole, chips=1")
+    rows = {}
+    for name, w, K in (("K=8", engine, 8), ("K=1", engine["k1_window"], 1)):
+        check(w["decode_step_device_ms"] is not None,
+              f"9a: {name} window has no device time")
+        B = w["decode_batch"]
+        roof = max(cost._decode_roofline(B, w["decode_mean_ctx"])) * 1e3
+        roof_traced = max(cost._decode_roofline(
+            B, w["decode_traced_mean_ctx"])) * 1e3
+        pred = cost.decode_step_time(B, w["decode_mean_ctx"], K) * 1e3
+        host, devm = w["decode_step_wall_ms"], w["decode_step_device_ms"]
+        rows[name] = {"batch": B, "mean_ctx": w["decode_mean_ctx"],
+                      "roofline_ms": roof, "predicted_ms": pred,
+                      "host_ms": host, "device_ms": devm,
+                      "predicted_over_host": pred / host,
+                      "predicted_over_device": pred / devm,
+                      "roofline_over_device": roof_traced / devm}
+        print(f"  decode {name} ({B} sequences, mean context "
+              f"{w['decode_mean_ctx']:.1f}): roofline {roof:.3f} ms, "
+              f"predicted {pred:.3f} ms, measured {host:.3f} ms host clock / "
+              f"{devm:.3f} ms device; predicted/host {pred / host:.3f}, "
+              f"predicted/device {pred / devm:.3f}, roofline/device "
+              f"{roof_traced / devm:.3f}")
+        check(math.isfinite(pred) and pred > 0, f"9a: {name} prediction")
+        check(roof_traced <= devm, f"9a: the {name} roofline "
+              f"{roof_traced:.3f} ms is above the measured device time "
+              f"{devm:.3f} ms: a rate or a byte count is wrong")
+    ps = engine["per_step_path"]
+    print(f"  a different path, per-step (fused_decode=False, "
+          f"{ps['sequences']} sequences at ~0.35k): "
+          f"{ps['decode_step_wall_ms']:.3f} ms a decode step on the host "
+          f"clock over {ps['decode_steps']} steps")
+    d, h = fit_overheads(rows["K=8"]["host_ms"], rows["K=8"]["roofline_ms"],
+                         rows["K=1"]["host_ms"], rows["K=1"]["roofline_ms"])
+    held = " (the K=1 step is not the longer: host_sync held at 0)" \
+        if rows["K=1"]["host_ms"] - rows["K=1"]["roofline_ms"] \
+        <= rows["K=8"]["host_ms"] - rows["K=8"]["roofline_ms"] else ""
+    print(f"  fitted to this run: dispatch_overhead {d:.4f} ms, "
+          f"host_sync {h:.4f} ms (step_overhead {d + h:.4f} ms){held}")
+
+    # -- the prefill chunk: 512 tokens at 1024 --
+    n = 512
+    flops = 2.0 * cfg.num_active_params * n
+    roof = max(flops / cost.peak_flops,
+               cfg.num_active_params * cost.bytes_per_param
+               / cost.hbm_bw) * 1e3
+    pred = cost.prefill_time(n) * 1e3
+    host, devm = engine["prefill_step_wall_ms"], \
+        engine["prefill_step_device_ms"]
+    check(devm is not None, "9a: the prefill chunk has no device time")
+    mfu_host = flops / cost.peak_flops / (host / 1e3)
+    mfu_dev = flops / cost.peak_flops / (devm / 1e3)
+    rows["prefill"] = {"tokens": n, "roofline_ms": roof, "predicted_ms": pred,
+                       "host_ms": host, "device_ms": devm,
+                       "predicted_over_host": pred / host,
+                       "predicted_over_device": pred / devm,
+                       "roofline_over_device": roof / devm,
+                       "implied_mfu_host": mfu_host,
+                       "implied_mfu_device": mfu_dev}
+    print(f"  prefill chunk ({n} tokens at 1024): roofline {roof:.3f} ms, "
+          f"predicted {pred:.3f} ms (mfu {cost.mfu}), measured {host:.3f} ms "
+          f"host clock / {devm:.3f} ms device; predicted/host "
+          f"{pred / host:.3f}, predicted/device {pred / devm:.3f}; implied "
+          f"mfu {mfu_host:.4f} (host clock) / {mfu_dev:.4f} (device)")
+    check(math.isfinite(pred) and pred > 0, "9a: prefill prediction")
+    check(roof <= devm, f"9a: the prefill roofline {roof:.3f} ms is above "
+          f"the measured device time {devm:.3f} ms")
+
+    coll = collective_ms(torch, dev)
+    rate = swap["bytes"] / (swap["swap_out"] / 1e3)
+    rate_in = swap["bytes"] / (swap["swap_in"] / 1e3)
+    print(f"  ServeSharding.all_reduce of {TP_SHARDS} {COLLECTIVE_SHAPE} "
+          f"bf16 shards on one card: median {coll * 1e3:.2f} us of "
+          f"{COLLECTIVE_CALLS} calls (committed COLLECTIVE_LAUNCH "
+          f"{cm.COLLECTIVE_LAUNCH * 1e6:.2f} us)")
+    print(f"  swap rate (phase 5): out {rate / 1e9:.3f} GB/s, in "
+          f"{rate_in / 1e9:.3f} GB/s for {swap['bytes']} bytes, beside "
+          f"HOST_IO_BW {cm.HOST_IO_BW / 1e9:.3f} GB/s (datasheet)")
+
+    # -- 9b: a held-out model, phase 6a's phi3.5-moe --
+    mcfg = dataclasses.replace(REGISTRY["phi3.5-moe-42b-a6.6b"],
+                               num_layers=MOE_LAYERS)
+    K = FAMILY_ENGINE["decode_steps_per_sync"]
+    mpred = cm.InstanceCost(cfg=mcfg, chips=1).decode_step_time(
+        moe["decode_batch"], moe["decode_mean_ctx"], K) * 1e3
+    check(math.isfinite(mpred) and mpred > 0, "9b: prediction")
+    ratio = mpred / moe["decode_step_wall_ms"]
+    print(f"phase 9b: held out, {mcfg.name} ({MOE_LAYERS} layers, K={K}, "
+          f"{moe['decode_batch']} sequences at {moe['decode_mean_ctx']:.1f}):"
+          f" predicted {mpred:.3f} ms against phase 6a's "
+          f"{moe['decode_step_wall_ms']:.3f} ms a step on the host clock: "
+          f"ratio {ratio:.3f}")
+    return {"llama": rows, "fit_dispatch_ms": d, "fit_host_sync_ms": h,
+            "per_step_path": ps, "collective_ms": coll,
+            "swap_out_bytes_s": rate, "swap_in_bytes_s": rate_in,
+            "moe_predicted_ms": mpred, "moe_ratio": ratio}
+
+
+def federation_des(tb, gw, api, wl, hw=None):
+    """9c: ``examples/federated_serving.py``'s scenario and the batch
+    control plane of ``examples/batch_inference.py``, on the DES at the
+    paper's model sizes. ``tb``, ``gw``, ``api``, ``wl``: a package's
+    ``core.testbed``, ``core.gateway``, ``api`` and ``data.workload``
+    (the port's here; the CPU tests pass the JAX package's too and hold
+    the two traces equal). ``hw``: InstanceCost overrides. Returns
+    (metrics, trace); fails on a failed check."""
+    import numpy as np
+    L70 = tb.LLAMA70B
+    M = L70.name
+
+    def dep(**kw):
+        return tb.default_deployment(L70, max_instances=2, storage_bw=40e9,
+                                     scale_cooldown=5.0, hw=hw, **kw)
+
+    system = tb.build_system(
+        {"sophia": {M: dep(scheduling_policy="priority",
+                           enable_preemption=True, restore_hit_rate=0.9)},
+         "polaris": {M: dep()}},
+        gateway_config=gw.GatewayConfig(workers=128), startup_delay=5.0)
+    picks = [system.router.select_endpoint(M)]
+    tb.warm_up(system, M)
+    picks.append(system.router.select_endpoint(M))
+    print(f"  cold selection -> {picks[0]}, warm -> {picks[1]}: rules "
+          f"{[d[2] for d in system.router.decisions]}")
+    check(picks == ["sophia-ep", "sophia-ep"]
+          and system.router.decisions[0][2] == "free-nodes"
+          and system.router.decisions[-1][2] == "active-instance",
+          "9c: cold/warm selection rules")
+
+    burst = tb.drive_workload(system, wl.make_workload(
+        400, rate=float("inf"), seed=1), M)
+    sophia = len(system.endpoints["sophia-ep"].instances[M])
+    print(f"  burst of 400: {burst['req_per_s']:.3f} req/s, "
+          f"{burst['output_tok_per_s']:.3f} output tokens/s (modelled by the "
+          f"DES on the port's H100 cost terms), sophia instances {sophia}, "
+          f"errors {burst['errors']}")
+    check(burst["errors"] == 0 and burst["completed"] == 400,
+          "9c: burst errors")
+    check(sophia == 2, f"9c: the burst ended with {sophia} sophia instances")
+
+    system.health.mark_down("sophia-ep")
+    system.loop.run_until(system.loop.now() + 15.0)
+    client = api.FirstClient(system.gateway, system.token_for("alice"))
+    fut = client.chat(model=M, prompt_tokens=64, max_tokens=32)
+    system.loop.run_until_idle()
+    check(fut.error is None, f"9c: post-outage request: {fut.error}")
+    served = fut.result().endpoint_id
+    print(f"  after the sophia outage: served by {served} (rule "
+          f"{system.router.decisions[-1][2]})")
+    check(served == "polaris-ep", "9c: the post-outage request was not "
+          "served by polaris-ep")
+    jobs = system.gateway.jobs_status()
+
+    system.health.mark_up("sophia-ep")
+    system.health.mark_down("polaris-ep")
+    system.loop.run_until(system.loop.now() + 15.0)
+    t0 = system.loop.now()
+    flood = [client.chat(model=M, request_id=f"flood-{j}", prompt_tokens=256,
+                         max_tokens=1500, qos="batch") for j in range(96)]
+    inter = {}
+
+    def ask():
+        inter["fut"], inter["asm"] = client.stream(
+            model=M, request_id="chat-1", prompt_tokens=72, max_tokens=24,
+            qos="interactive")
+        inter["t"] = system.loop.now()
+
+    system.loop.call_at(t0 + 20.0, ask)
+    system.loop.run_until_idle()
+    check(all(f.error is None for f in flood), "9c: flood errors")
+    check(inter["fut"].error is None,
+          f"9c: the interactive request: {inter['fut'].error}")
+    recs = {r.request_id: r for r in system.metrics.records}
+    flood_e2e = sorted(recs[f"flood-{j}"].e2e for j in range(96))
+    median = flood_e2e[len(flood_e2e) // 2]
+    preempts = sum(i.engine.total_preemptions
+                   for i in system.endpoints["sophia-ep"].instances[M])
+    asm, resp = inter["asm"], inter["fut"].result()
+    ttft = asm.ttft - inter["t"]
+    print(f"  QoS: interactive TTFT {ttft:.3f} s, e2e "
+          f"{recs['chat-1'].e2e:.3f} s over {len(asm.deltas)} stream frames "
+          f"against the flood's median e2e {median:.3f} s; sophia preemptions "
+          f"{preempts}")
+    check(ttft < median and preempts > 0, "9c: the interactive request did "
+          "not jump the flood")
+    check(asm.finished and asm.n_tokens == resp.usage.completion_tokens
+          == 24, "9c: the streamed frames do not reassemble to the output")
+    summary = system.metrics.summary()
+    fed = {"records": system.metrics.records, "summary": summary,
+           "decisions": system.router.decisions, "jobs": jobs,
+           "jobs_end": system.gateway.jobs_status(), "burst": burst,
+           "frames": asm.deltas, "response": resp, "now": system.loop.now()}
+
+    # -- the batch control plane: 500 JSONL lines through /v1/batches --
+    rng = np.random.default_rng(7)
+    lines = [json.dumps({"custom_id": f"b{i}", "method": "POST",
+                         "url": "/v1/completions",
+                         "body": {"model": M,
+                                  "prompt_tokens": int(rng.integers(16, 512)),
+                                  "max_tokens": int(rng.integers(16, 256))}})
+             for i in range(500)]
+    bsys = tb.build_system({"sophia": {M: tb.default_deployment(L70,
+                                                                hw=hw)}})
+    bclient = api.FirstClient(bsys.gateway, bsys.token_for("alice"))
+    bfut = bclient.create_batch([json.loads(line) for line in lines])
+    bsys.loop.run_until(120.0)
+    bid = bfut.result().id
+    loading = bclient.batch_status(bid)
+    bsys.loop.run_until_idle()
+    st = bclient.batch_status(bid)
+    results = bclient.batch_results(bid)
+    dur = st.completed_at - st.created_at
+    print(f"  batch: {st.status}, {st.completed} of {st.total} requests, "
+          f"{st.output_tokens} tokens in {dur:.3f} s: "
+          f"{st.output_tokens / dur:.3f} output tokens/s (modelled by the DES "
+          f"on the port's H100 cost terms; cold start "
+          f"{st.in_progress_at - st.created_at:.3f} s)")
+    check(st.status == "completed" and st.completed == 500
+          and len(results) == 500 and st.failed == 0,
+          "9c: the batch did not complete with 500 results")
+    check(all(r.get("error") is None for r in results),
+          "9c: a batch result carries an error")
+    metrics = {"burst_req_s": burst["req_per_s"],
+               "burst_output_tok_s": burst["output_tok_per_s"],
+               "sophia_instances": sophia, "post_outage_endpoint": served,
+               "interactive_ttft_s": ttft, "flood_median_e2e_s": median,
+               "preemptions": preempts,
+               "batch_output_tok_s": st.output_tokens / dur,
+               "batch_completed": st.completed,
+               "summary_req_s": summary["req_per_s"],
+               "summary_output_tok_s": summary["output_tok_per_s"]}
+    return metrics, {"federation": fed, "batch": {
+        "loading": loading, "status": st, "results": results,
+        "now": bsys.loop.now()}}
+
+
+def run_control_plane():
+    """9c on the port's package, with the DES's host wall time."""
+    from repro_torch import api
+    from repro_torch.core import gateway, testbed
+    from repro_torch.data import workload
+    print("phase 9c: the paper's federation on the port's DES "
+          "(llama3.3-70b, 8 cards an instance, sophia + polaris)")
+    t0 = time.perf_counter()
+    metrics, _ = federation_des(testbed, gateway, api, workload)
+    metrics["des_host_s"] = time.perf_counter() - t0
+    print(f"  the DES ran in {metrics['des_host_s']:.3f} s of host wall time")
+    return metrics
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         fail(f"{SRC / 'repro_torch'} not found: run from a checkout")
@@ -3361,6 +3729,11 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     tp_metrics = run_tensor_parallel(torch, dev, metrics)
+    gc.collect()
+    torch.cuda.empty_cache()
+    core_metrics = run_cost_model(torch, dev, metrics,
+                                  spec_metrics["swap"], family_metrics["moe"])
+    core_metrics["des"] = run_control_plane()
 
     replaces = {
         "paged_attention": ("src/repro_torch/csrc/paged_attention.cu",
@@ -3411,6 +3784,7 @@ def main() -> int:
                       "family_metrics": family_metrics,
                       "train_metrics": train_metrics,
                       "tp_metrics": tp_metrics,
+                      "core_metrics": core_metrics,
                       "hubert_flash_attention": timing[
                           "flash_attention hubert"],
                       "decode_kernel": decode, "ssd_kernel": ssd_kernel,

@@ -11,10 +11,11 @@ frames; ``cancel`` models a client disconnect.
     system.loop.run_until_idle()
     resp = fut.result()             # ChatCompletionResponse, with .usage
 
-A copy of the JAX package's ``repro/api/client.py``. The gateway is duck
-typed: any object with ``submit``, ``cancel``, ``create_batch``,
-``batch_status``, ``batch_results``, ``jobs_status`` and a ``loop`` clock
-(the port has no gateway of its own yet: ROADMAP Queue 1 item 14).
+A copy of the JAX package's ``repro/api/client.py``. The gateway is
+the port's ``repro_torch.core.gateway.InferenceGateway`` (built by
+``repro_torch.core.testbed.build_system``), or any object with ``submit``,
+``cancel``, ``create_batch``, ``batch_status``, ``batch_results``,
+``jobs_status`` and a ``loop`` clock.
 """
 from __future__ import annotations
 
