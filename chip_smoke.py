@@ -16,7 +16,9 @@ package. Phases, each of which raises on a failed check (exit code 1):
    (the SSD scan, dense flash attention), at phase 6's shapes
    (phi3.5-moe's and llava-next-34b's grouping in both paged kernels;
    hubert-xlarge's non-causal (8, 512, 16, 80) batch in the flash kernel,
-   timed beside SDPA and its bound) and at edge geometries -- for
+   timed beside SDPA and its bound), at phase 8's per-shard shapes (the
+   paged kernels at a quarter of the kv heads; the flash kernel at 8 of
+   zamba2's 32 heads, S = 2048 and 777) and at edge geometries -- for
    the split-K paged decode kernels also at the edges of its splits, its
    launch geometry printed, its device time at two other split sizes and
    the device time of one PyTorch sum over the same K/V bytes; for the
@@ -136,6 +138,21 @@ package. Phases, each of which raises on a failed check (exit code 1):
       shard), then teacher-forced: free runs with their routing flips
       reported, and the mesh routed by the 1-device decisions held to
       LOGITS_TOL.
+   d. zamba2-2.7b whole (54 layers) on the slot backend with the kernel
+      tier: in_proj split by columns and gathered, every shard scanning
+      its own copy of the replicated ssm/conv state, out_proj by rows, the
+      shared attention at 8 of 32 heads a shard. Phase 4's 8 prompts
+      one-shot (``ssd``: prompts x 54 x 4 launches, each of its three
+      passes once; ``flash_attention``: prompts x 9 x 4), 16 new tokens
+      each through the fused K=8 path, no logits transfer; a decode window
+      (one fused call timed, one traced: the trace of four shards' steps
+      is large) beside phase 4's (host and device ms, idle share),
+      peak memory; then teacher-forced against the 1-device kernel tier
+      on phase 4's prompts and steps, within max(LOGITS_TOL, SPREAD_FACTOR
+      x phase 4's plain-tier spread). Then mamba2-130m whole (24 layers)
+      on the same mesh: 4 prompts (``ssd``: prompts x 24 x 4),
+      teacher-forced against 1 device within max(LOGITS_TOL,
+      SPREAD_FACTOR x its own plain-tier spread).
 9. The control plane and the cost model (``repro_torch.core``,
    ``repro_torch.serving.costmodel`` with its committed H100 constants):
    a. the model against phase 3's llama3.2-3b windows: for K=8, K=1 and
@@ -159,8 +176,9 @@ package. Phases, each of which raises on a failed check (exit code 1):
       through ``FirstClient.create_batch``; rates printed as modelled by
       the DES, with its host wall time.
 10. A ``{"metrics": ...}`` line (phase 9's under ``core_metrics``), a
-   ``{"kernels": [...]}`` line (each kernel's phase-8a launches as
-   ``tp_launches``), the nvidia-smi line, and last
+   ``{"kernels": [...]}`` line (each kernel's launches under a mesh as
+   ``tp_launches``: phase 8a's decode kernels, phase 8d's zamba2 ``ssd``
+   and ``flash_attention``), the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -901,6 +919,12 @@ def run_hybrid_kernel_checks(torch, dev):
          "D=128 G=3 S=37: rows end mid-tile, bf16"),
         (dict(B=1, S=200, H=32, KH=32, D=80, dtype=bf16, causal=False), 0,
          150, "D=80 not causal, seq_k=150, bf16"),
+        # phase 8d's per-shard geometry: zamba2's shared attention at 8 of
+        # its 32 heads, at the longest prompt and a ragged one
+        (dict(B=1, S=2048, H=8, KH=8, D=80, dtype=bf16), 0, None,
+         "zamba2 shard: 8/8 D=80 S=2048, bf16"),
+        (dict(B=1, S=777, H=8, KH=8, D=80, dtype=bf16), 0, None,
+         "zamba2 shard: 8/8 D=80 S=777, bf16"),
     ]
     for kw, window, seq_k, label in fcases:
         kw = dict(kw)
@@ -1062,10 +1086,12 @@ def profile_decode(torch, engine, reqs, steps=2, on_trace=None):
     steps (each one fused call of K decode steps) timed on the host clock,
     then as many traced with torch.profiler for device time by kernel. The
     device's idle share is 1 - device busy time / the UNtraced window's
-    wall time, which keeps the tracer's own host overhead out. With
-    ``on_trace``, the trace records op shapes and ``on_trace(prof,
-    peak_rise)`` gets it and the most device memory the traced window
-    allocated above what it started with."""
+    wall time, which keeps the tracer's own host overhead out. The trace
+    records device activity alone (host op events only add the tracer's
+    cost: a sharded step's took most of a minute to record and parse).
+    With ``on_trace``, it also records the host ops with their shapes and
+    ``on_trace(prof, peak_rise)`` gets it and the most device memory the
+    traced window allocated above what it started with."""
     from torch.profiler import ProfilerActivity, profile
     for r in reqs:
         engine.add_request(r)
@@ -1105,8 +1131,9 @@ def profile_decode(torch, engine, reqs, steps=2, on_trace=None):
     wall, n_tok = window()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 record_shapes=on_trace is not None) as prof:
+    acts = [ProfilerActivity.CUDA] if on_trace is None \
+        else [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=acts, record_shapes=on_trace is not None) as prof:
         _, n_tok2 = window()
     if on_trace is not None:
         on_trace(prof, torch.cuda.max_memory_allocated() - base)
@@ -1374,6 +1401,54 @@ def run_engine(torch, dev):
 # phase 4: the slot engine at full width (zamba2-2.7b)
 # ---------------------------------------------------------------------------
 
+def slot_tiers(dev, tiers, params, n):
+    """Slot backends by name, one for each of ``tiers`` ((name, model,
+    use_kernel, mesh)) over the same weights, ``n`` slots of 4096."""
+    from repro_torch.serving.backends import SlotBackend
+    return {name: SlotBackend(m, params, max_slots=n, max_len=4096,
+                              use_kernel=uk, mesh=me, device=dev)
+            for name, m, uk, me in tiers}
+
+
+def teacher_forced(backends, prompts, steps, test, ref, feed=None):
+    """The ``backends`` (by name) prefill the same prompts one-shot, then
+    take ``steps`` decode steps, each fed the greedy tokens of the
+    ``feed`` tier (default ``ref``). Fails on a greedy token of ``test``
+    that differs from ``ref``'s by more than their logits do (a flip
+    between two candidates closer than the tiers differ is a tie, not a
+    fault). Returns
+    (worst(a, b): tier a's worst logits rel_err against tier b over every
+    prefill and step, the share of ``test``'s greedy tokens that match,
+    the ties)."""
+    import numpy as np
+    lg = {name: [] for name in backends}
+    for sid, pr in enumerate(prompts):
+        for name, b in backends.items():
+            lg[name].append(b.prefill(f"s{sid}", pr).float().cpu().numpy()
+                            [None])
+    feed = feed or ref
+    tok = np.array([int(x.argmax()) for x in lg[feed]])
+    agree = ties = 0
+    for _ in range(steps):
+        for name, b in backends.items():
+            lg[name].append(b.decode_batch(tok))
+        want, got = lg[ref][-1], lg[test][-1]
+        diff = float(np.abs(got - want).max())
+        for r in range(len(prompts)):
+            same = int(got[r].argmax()) == int(want[r].argmax())
+            top2 = np.sort(want[r])[-2:]
+            agree += same
+            ties += (not same) and (top2[1] - top2[0] <= 2 * diff)
+        tok = lg[feed][-1].argmax(-1)
+
+    def worst(a, b):
+        return max(float(np.abs(x - y).max() / max(np.abs(y).max(), 1e-6))
+                   for x, y in zip(lg[a], lg[b]))
+    check(agree + ties == steps * len(prompts), f"a greedy token differs "
+          f"between {test} and {ref} by more than their logits do")
+    return worst, agree / (steps * len(prompts)), ties
+
+
 def run_hybrid_engine(torch, dev):
     """zamba2-2.7b on the slot backend with the kernel tier: 8 prompts of
     200..2048 tokens through exact-length one-shot prefill and the fused
@@ -1384,7 +1459,6 @@ def run_hybrid_engine(torch, dev):
     from repro_torch.kernels import _build
     from repro_torch.models import make_model
     from repro_torch.serving import backends
-    from repro_torch.serving.backends import SlotBackend
     from repro_torch.serving.engine import (ContinuousBatchingEngine,
                                             EngineConfig)
 
@@ -1498,47 +1572,23 @@ def run_hybrid_engine(torch, dev):
     # order (random weights at this depth amplify ulp-level differences) --
     floor_model = make_model(dataclasses.replace(
         cfg, ssm=dataclasses.replace(cfg.ssm, chunk=128)))
-    bk = [SlotBackend(m, params, max_slots=2, max_len=4096, use_kernel=uk,
-                      device=dev)
-          for m, uk in ((model, True), (model, False), (floor_model, False))]
     rng = np.random.default_rng(2)
     prompts = [rng.integers(2, V, size=n).tolist() for n in (512, 2048)]
-    worst, spread = 0.0, 0.0
-    tok = np.zeros((2,), np.int64)
-    for sid, pr in enumerate(prompts):
-        lk, lp, lf = (b.prefill(f"s{sid}", pr) for b in bk)
-        rel, _ = rel_err(lk, lp)
-        rel_f, _ = rel_err(lf, lp)
-        worst, spread = max(worst, rel), max(spread, rel_f)
-        tok[sid] = int(lk.argmax())
-        print(f"  teacher-forced prefill s{sid} ({len(pr)} tokens): logits "
-              f"rel_err {rel:.3e}; plain tier's own spread {rel_f:.3e}")
-    agree, ties = 0, 0
     steps = 16
-    for _ in range(steps):
-        lk, lp, lf = (b.decode_batch(tok) for b in bk)
-        scale = max(float(np.abs(lp).max()), 1e-6)
-        diff = float(np.abs(lk - lp).max())
-        worst = max(worst, diff / scale)
-        spread = max(spread, float(np.abs(lf - lp).max()) / scale)
-        for s_ in range(2):
-            same = int(lk[s_].argmax()) == int(lp[s_].argmax())
-            top2 = np.sort(lp[s_])[-2:]
-            agree += same
-            # a flip between two candidates closer than the tiers differ
-            # is a tie, not a fault
-            ties += (not same) and (top2[1] - top2[0] <= 2 * diff)
-        tok = lk.argmax(-1)
-    share = agree / (2 * steps)
+    worst, share, ties = teacher_forced(
+        slot_tiers(dev, [("kernel", model, True, None),
+                         ("plain", model, False, None),
+                         ("floor", floor_model, False, None)], params, 2),
+        prompts, steps, "kernel", "plain", feed="kernel")
+    worst, spread = worst("kernel", "plain"), worst("floor", "plain")
     tol = max(LOGITS_TOL, SPREAD_FACTOR * spread)
-    print(f"  teacher-forced decode: {steps} steps x 2 sequences, worst "
-          f"logits rel_err {worst:.3e}; plain tier's own spread "
+    print(f"  teacher-forced: prefill and {steps} decode steps x 2 "
+          f"sequences, worst logits rel_err {worst:.3e}; plain tier's own "
+          f"spread "
           f"{spread:.3e}; tolerance max({LOGITS_TOL}, {SPREAD_FACTOR} x "
           f"spread) = {tol:.3e}; greedy tokens that match: {share:.3f} "
           f"({ties} ties within the error)")
     check(worst <= tol, "kernel tier logits disagree with the plain tier")
-    check(agree + ties == 2 * steps, "a greedy token differs between the "
-          "tiers by more than their logits do")
     metrics["teacher_forced_rel_err"] = worst
     metrics["plain_spread_rel_err"] = spread
     metrics["greedy_match_share"] = share
@@ -3357,13 +3407,194 @@ def run_tp_moe(torch, dev):
     return metrics
 
 
-def run_tensor_parallel(torch, dev, one_device):
-    """Phase 8: the three parts, each after the previous one's weights are
+TP_HYBRID_LENS = (200, 300, 512, 777, 1024, 1300, 1800, 2048)  # phase 4's
+TP_HYBRID_TOKENS = 16          # new tokens a request: two fused K=8 calls
+TP_SSM_LENS = (200, 512, 1024, 2048)
+
+
+def run_tp_hybrid(torch, dev, one_device):
+    """8d: zamba2-2.7b whole on 4 shards with the kernel tier (``ssd`` and
+    ``flash_attention`` once per shard), then mamba2-130m whole on the same
+    mesh; each teacher-forced against its 1-device kernel tier."""
+    from repro_torch.configs import REGISTRY
+    from repro_torch.kernels import _build
+    from repro_torch.models import make_model
+    from repro_torch.serving import backends
+    from repro_torch.serving.engine import (ContinuousBatchingEngine,
+                                            EngineConfig)
+
+    cfg = REGISTRY["zamba2-2.7b"]
+    L, V, G = cfg.num_layers, cfg.vocab_size, \
+        cfg.num_layers // cfg.attn_every
+    cols = 2 * cfg.d_inner + 2 * cfg.ssm.d_state + cfg.ssm_heads
+    print(f"phase 8d: {cfg.name} whole on {TP_SHARDS} shards of one card "
+          f"(L={L}, in_proj {cols} columns, out_proj {cfg.d_inner} rows, "
+          f"shared attention {cfg.num_heads // TP_SHARDS} of "
+          f"{cfg.num_heads} heads a shard)")
+    t_phase = time.perf_counter()
+    laps = {}
+
+    def lap(name):
+        """Seconds since the previous lap, kept under ``name``."""
+        laps[name] = time.perf_counter() - t_phase - sum(laps.values())
+        return f"({laps[name]:.1f} s)"
+
+    model = make_model(cfg)
+    params = model.init_params(torch.Generator(device=dev).manual_seed(0))
+    mesh = tp_mesh(dev)
+    ecfg = dict(backend="slots", use_kernel=True, max_slots=8,
+                max_seq_len=4096, decode_steps_per_sync=8, mesh=mesh)
+
+    def requests(lens, max_tokens, seed, vocab=V, name=cfg.name):
+        return make_requests(len(lens), 0, lens, max_tokens, vocab, seed,
+                             model=name)
+
+    # -- main path: phase 4's prompts one-shot on the shards, fused K=8 --
+    eng = ContinuousBatchingEngine(model, params, EngineConfig(**ecfg),
+                                   device=dev)
+    be = eng.backend
+    shapes = {k: tuple(t.shape) for k, t in be.cache_shards[0].items()}
+    print(f"  cache shard {shapes}; in_proj shard "
+          f"{tuple(be.stack.layers[0][0]['mamba']['in_proj'].shape)}")
+    check(all(c["ssm"].shape[2] == cfg.ssm_heads
+              and c["k"].shape[2] == cfg.num_kv_heads // TP_SHARDS
+              for c in be.cache_shards),
+          "8d: the ssm state is not whole or k/v not split over the heads")
+    check(len({c["ssm"].data_ptr() for c in be.cache_shards}) == TP_SHARDS,
+          "8d: the shards share one ssm state")
+    torch.cuda.reset_peak_memory_stats()
+    backends.reset_transfer_stats()
+    _build.reset_launches()
+    outs, t_pf, t_dec, n_dec = drive(torch, eng, requests(
+        TP_HYBRID_LENS, TP_HYBRID_TOKENS, 4))
+    launches = dict(_build.LAUNCHES)
+    passes = dict(_build.PASS_LAUNCHES)
+    n = len(TP_HYBRID_LENS)
+    check_outputs("8d", outs, n, TP_HYBRID_TOKENS, V)
+    check(backends.TRANSFER_STATS["decode_logits_transfers"] == 0,
+          "8d: the fused path moved logits to the host")
+    print(f"  main path launches {launches}: {n} prompts x {L} layers x "
+          f"{TP_SHARDS} shards (ssd), x {G} shared-block applications "
+          f"(flash_attention); ssd passes {passes} {lap('main')}")
+    tp_launch_check("8d", launches, {"ssd": n * L * TP_SHARDS,
+                                     "flash_attention": n * G * TP_SHARDS})
+    check(all(passes[k] == launches["ssd"] for k in (
+        "ssd_chunk_state", "ssd_state_pass", "ssd_chunk_scan"))
+        and passes["ssd_fma"] == 0,
+        "8d: the bf16 ssd calls did not launch each of their passes once")
+    metrics = {
+        "prefill_tok_s": eng.stats["prefill_tokens"] / t_pf,
+        "decode_tok_s": n_dec / t_dec if t_dec else float("nan"),
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+        "launches": launches}
+    print(f"  prefill {metrics['prefill_tok_s']:.1f} tokens/s (1 device, "
+          f"phase 4: {one_device['prefill_tok_s']:.1f}); peak memory "
+          f"{metrics['peak_mem_gib']:.2f} GiB (the unsharded weights kept "
+          f"for the comparison included)")
+    del eng, be
+    torch.cuda.empty_cache()
+    tp = profile_decode(torch, ContinuousBatchingEngine(
+        model, params, EngineConfig(**ecfg), device=dev),
+        requests(TP_HYBRID_LENS, 64, 3), steps=1)
+    metrics.update({f"tp_{k}": v for k, v in tp.items()})
+    gc.collect()
+
+    def ms(x):
+        return "not measured" if x is None else f"{x:.3f}"
+    print(f"  decode step: {tp['decode_step_wall_ms']:.3f} ms on the host "
+          f"clock, device {ms(tp['decode_step_device_ms'])} ms, idle "
+          f"{ms(tp['device_idle_share'])} (1 device, phase 4: "
+          f"{one_device['decode_step_wall_ms']:.3f} / "
+          f"{ms(one_device['decode_step_device_ms'])} ms, idle "
+          f"{ms(one_device['device_idle_share'])}) {lap('window')}")
+    torch.cuda.empty_cache()
+
+    # -- teacher-forced: mesh kernel tier against 1-device kernel tier, on
+    # phase 4's prompts and steps, held to phase 4's rule with the plain
+    # tier's spread phase 4 measured on the same weights --
+    import numpy as np
+    rng = np.random.default_rng(2)
+    worst, share, ties = teacher_forced(
+        slot_tiers(dev, [("one", model, True, None),
+                         ("mesh", model, True, mesh)], params, 2),
+        [rng.integers(2, V, size=k).tolist() for k in (512, 2048)], 16,
+        "mesh", "one")
+    worst = worst("mesh", "one")
+    spread = one_device["plain_spread_rel_err"]
+    tol = max(LOGITS_TOL, SPREAD_FACTOR * spread)
+    print(f"  teacher-forced (512 / 2048-token prompts, 16 decode steps): "
+          f"mesh vs 1 device logits rel_err {worst:.3e}; tolerance "
+          f"max({LOGITS_TOL}, {SPREAD_FACTOR} x phase 4's plain spread "
+          f"{spread:.3e}) = {tol:.3e}; greedy tokens that match "
+          f"{share:.3f} ({ties} ties within the error) "
+          f"{lap('teacher_forced')}")
+    check(worst <= tol, "8d: mesh logits disagree with 1 device")
+    metrics.update(teacher_forced_rel_err=worst, tolerance=tol,
+                   greedy_match_share=share)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- mamba2-130m whole on the same mesh --
+    scfg = REGISTRY["mamba2-130m"]
+    SL, SV = scfg.num_layers, scfg.vocab_size
+    print(f"phase 8d: {scfg.name} whole on {TP_SHARDS} shards (L={SL}, "
+          f"d={scfg.d_model}, ssm heads={scfg.ssm_heads}x"
+          f"{scfg.ssm.head_dim} n={scfg.ssm.d_state})")
+    smodel = make_model(scfg)
+    sparams = smodel.init_params(torch.Generator(device=dev).manual_seed(0))
+    eng = ContinuousBatchingEngine(smodel, sparams, EngineConfig(**ecfg),
+                                   device=dev)
+    backends.reset_transfer_stats()
+    _build.reset_launches()
+    outs, _, _, _ = drive(torch, eng, requests(TP_SSM_LENS, TP_HYBRID_TOKENS,
+                                               6, SV, scfg.name))
+    slaunches = dict(_build.LAUNCHES)
+    check_outputs("8d mamba2", outs, len(TP_SSM_LENS), TP_HYBRID_TOKENS, SV)
+    check(backends.TRANSFER_STATS["decode_logits_transfers"] == 0,
+          "8d mamba2: the fused path moved logits to the host")
+    print(f"  launches {slaunches}: {len(TP_SSM_LENS)} prompts x {SL} layers "
+          f"x {TP_SHARDS} shards {lap('mamba2_main')}")
+    tp_launch_check("8d mamba2", slaunches,
+                    {"ssd": len(TP_SSM_LENS) * SL * TP_SHARDS})
+    del eng
+    floor = make_model(dataclasses.replace(
+        scfg, ssm=dataclasses.replace(scfg.ssm, chunk=128)))
+    sworst, sshare, sties = teacher_forced(
+        slot_tiers(dev, [("one", smodel, True, None),
+                         ("mesh", smodel, True, mesh),
+                         ("plain", smodel, False, None),
+                         ("floor", floor, False, None)], sparams, 2),
+        [rng.integers(2, SV, size=k).tolist() for k in (512, 2048)], 16,
+        "mesh", "one")
+    sworst, sspread = sworst("mesh", "one"), sworst("floor", "plain")
+    stol = max(LOGITS_TOL, SPREAD_FACTOR * sspread)
+    print(f"  teacher-forced: mesh vs 1 device logits rel_err "
+          f"{sworst:.3e}; plain tier's own spread {sspread:.3e}; tolerance "
+          f"{stol:.3e}; greedy tokens that match {sshare:.3f} ({sties} ties "
+          f"within the error) {lap('mamba2_teacher_forced')}")
+    check(sworst <= stol, "8d mamba2: mesh logits disagree with 1 device")
+    metrics["mamba2"] = {"launches": slaunches,
+                         "teacher_forced_rel_err": sworst,
+                         "plain_spread_rel_err": sspread, "tolerance": stol,
+                         "greedy_match_share": sshare}
+    del sparams
+    torch.cuda.empty_cache()
+    metrics["phase_s"] = time.perf_counter() - t_phase
+    metrics["laps_s"] = laps
+    print(f"  phase 8d in {metrics['phase_s']:.1f} s")
+    return metrics
+
+
+def run_tensor_parallel(torch, dev, one_device, one_device_hybrid):
+    """Phase 8: the four parts, each after the previous one's weights are
     freed."""
     out = {}
     for name, run in (("llama", lambda: run_tp_llama(torch, dev, one_device)),
                       ("granite", lambda: run_tp_granite(torch, dev)),
-                      ("moe", lambda: run_tp_moe(torch, dev))):
+                      ("moe", lambda: run_tp_moe(torch, dev)),
+                      ("hybrid", lambda: run_tp_hybrid(torch, dev,
+                                                       one_device_hybrid))):
         gc.collect()
         torch.cuda.empty_cache()
         out[name] = run()
@@ -3728,7 +3959,7 @@ def main() -> int:
     train_metrics = run_training(torch, dev)
     gc.collect()
     torch.cuda.empty_cache()
-    tp_metrics = run_tensor_parallel(torch, dev, metrics)
+    tp_metrics = run_tensor_parallel(torch, dev, metrics, hybrid_metrics)
     gc.collect()
     torch.cuda.empty_cache()
     core_metrics = run_cost_model(torch, dev, metrics,
@@ -3752,13 +3983,16 @@ def main() -> int:
     # launches: paged_attention from phase 3's per-step path, the other two
     # paged kernels from its fused main path, ssd and flash_attention from
     # phase 4's main path
-    # phase 8a's per-shard launches: the fused path's and the per-step
-    # path's (no other kernel runs under a mesh)
+    # per-shard launches under a mesh: phase 8a's fused path and per-step
+    # path, phase 8d's zamba2 main path (ssd, flash_attention); the paged
+    # prefill kernel runs under no mesh
     tp_launches = {
         "fused_decode_attention":
             tp_metrics["llama"]["launches_fused"]["fused_decode_attention"],
         "paged_attention":
-            tp_metrics["llama"]["launches_per_step"]["paged_attention"]}
+            tp_metrics["llama"]["launches_per_step"]["paged_attention"],
+        "ssd": tp_metrics["hybrid"]["launches"]["ssd"],
+        "flash_attention": tp_metrics["hybrid"]["launches"]["flash_attention"]}
     kernels = []
     for name, (source, repl) in replaces.items():
         r = timing[name]

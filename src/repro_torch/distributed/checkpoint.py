@@ -13,7 +13,8 @@ headerless zstd files. A write is atomic (tmp + rename). MessagePack's
 bin 32 limits each leaf to 4 GiB, as in the reference.
 
 The reference's ``shardings`` argument (elastic restore onto a mesh) waits
-for tensor parallelism (ROADMAP Queue 1 item 11).
+for the dry run (ROADMAP Queue 1 item 16), its only caller in the
+reference.
 """
 from __future__ import annotations
 

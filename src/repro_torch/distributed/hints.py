@@ -8,9 +8,9 @@ computes the LM loss in vocab chunks of that size (``_chunked_ce``), never
 materializing the full (tokens, V) logits.
 
 The reference's ``constrain`` and ``constrain_batch`` insert mesh sharding
-constraints; they are not here and wait for tensor parallelism (ROADMAP
-Queue 1 item 11), as do the mesh axes below, which the port carries but
-does not read.
+constraints; they are not here and wait for the dry run (ROADMAP Queue 1
+item 16), their only caller in the reference, as do the mesh axes below,
+which the port carries but does not read.
 """
 from __future__ import annotations
 

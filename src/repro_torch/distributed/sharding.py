@@ -188,6 +188,9 @@ class ServeSharding:
       shard holds the whole cache (``None``). Each shard's pool is a
       tensor of its own, never a view of a whole pool. Block tables,
       lengths and refcounts stay on the host, one copy for every shard.
+      The ssm and conv states of the ssm and hybrid families are
+      replicated, as in the reference: every shard holds a whole copy of
+      its own and scans it itself.
     * **the sampler** -- decode state and uploads live on the lead device
       (the first shard's), unsharded; it samples from the full logits, so
       only token ids reach the host.

@@ -8,15 +8,22 @@ the pure SSM stack. The reference's scan over groups of scanned layers is a
 pair of Python loops over per-layer views here. The training ``forward``
 rematerialises each mamba sublayer and not the shared block, as the
 reference's ``jax.checkpoint(inner)`` does.
+
+:func:`serve_prefill` and :func:`serve_decode_step` are :func:`prefill`
+and :func:`decode_step` over a
+:class:`~repro_torch.models.transformer.ServeStack`, on one device or the
+shards of a tensor-parallel mesh: the mixers through ``ServeStack.mixer``,
+the shared block through ``ServeStack.block`` (its attention at each
+shard's heads, or the head_dim split), each shard with its own cache.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import (attention_layer, dense_init,
-                                       init_attention, init_mlp, mlp_layer,
-                                       rms_norm)
+from repro_torch.models.layers import (attention_layer, chunked_attention,
+                                       dense_init, init_attention, init_mlp,
+                                       mlp_layer, rms_norm)
 from repro_torch.models.mamba2 import init_mamba, mamba_layer
 from repro_torch.models.transformer import (_scatter_new_kv, layer_list,
                                             layer_params, remat_call)
@@ -163,6 +170,101 @@ def decode_step(params, x, cfg, cache, *, window=0):
         _scatter_new_kv(cache["v"], torch.stack(new_v), lens)
     cache["len"] = lens + 1
     return rms_norm(x, params["final_norm"], cfg.norm_eps), cache
+
+
+def serve_prefill(stack, tokens, *, max_len, window=0, use_kernel=False):
+    """One-shot prefill of ``tokens`` (B, S) on the lead device through a
+    ``ServeStack``. Returns (the last position's float32 logits (B, V) on
+    the lead device, each shard's cache: ssm (L, B, H, P, N) float32, conv
+    (L, B, K-1, Ch), and for the hybrid k/v (G, B, KH_s, max_len, hd_s) at
+    the stack's kv split). ``use_kernel``: the scans through ``ssd`` and,
+    where each shard holds whole heads, the shared attention through
+    ``flash_attention`` at the shard's heads; a head_dim-split or
+    replicated cache attends by the plain split path."""
+    cfg = stack.cfg
+    B, S = tokens.shape
+    positions = torch.arange(S, device=tokens.device)[None, :].expand(B, S)
+    G, per = _group_params(cfg)
+    n = stack.n
+    ssm, conv, ks, vs = ([[] for _ in range(n)] for _ in range(4))
+    if use_kernel:
+        # the wrapper's module imports the model modules for its plain
+        # version
+        from repro_torch.kernels.flash_attention.ops import \
+            flash_attention as attn
+    else:
+        attn = chunked_attention
+    def attend(qkv):
+        for s, (_, k, v) in enumerate(qkv):
+            ks[s].append(k.transpose(1, 2))
+            vs[s].append(v.transpose(1, 2))
+        if stack.kv_split == "heads":
+            return [attn(q, k, v, causal=cfg.causal, window=window)
+                    for q, k, v in qkv]
+        # (1, S, S): key j visible to query t iff j <= t (within window)
+        gap = positions[:1, :, None] - positions[:1, None, :]
+        visible = (gap >= 0) & ((gap < window) if window else True)
+        return stack.split_attention([q for q, _, _ in qkv],
+                                     lambda s: qkv[s][1:], visible)
+
+    h = stack.embed(tokens)
+    for g in range(G):
+        for j in range(per):
+            i = g * per + j
+            lp = stack.layers[0][i]
+            y, states = stack.mixer(rms_norm(h, lp["norm"], cfg.norm_eps), i,
+                                    use_kernel=use_kernel)
+            h = h + y
+            for s, st in enumerate(states):
+                ssm[s].append(st["ssm"])
+                conv[s].append(st["conv"])
+        if cfg.attn_every:
+            h = stack.block(h, "shared", positions, attend)
+    caches = []
+    for s in range(n):
+        c = {"ssm": torch.stack(ssm[s]), "conv": torch.stack(conv[s])}
+        if cfg.attn_every:
+            pad = (0, 0, 0, max_len - S)
+            c["k"] = F.pad(torch.stack(ks[s]), pad)
+            c["v"] = F.pad(torch.stack(vs[s]), pad)
+        caches.append(c)
+    return stack.head(h[:, S - 1]), caches
+
+
+def serve_decode_step(stack, tokens, caches, lens, *, window=0):
+    """One decode step of every row through a ``ServeStack``: tokens (B,)
+    and ``lens`` (B,), the lengths before this token, on the lead device;
+    ``caches`` each shard's {ssm, conv[, k, v]}, updated IN PLACE (each
+    mixer's state after its layer, the shared block's new kv after the
+    loop, as :func:`decode_step`). The caller advances the lengths.
+    Returns float32 logits (B, V) on the lead device."""
+    cfg = stack.cfg
+    G, per = _group_params(cfg)
+    lens_s = stack.replicate(lens)
+    new = [([], []) for _ in range(stack.n)]
+    h = stack.embed(tokens[:, None])
+    for g in range(G):
+        for j in range(per):
+            i = g * per + j
+            lp = stack.layers[0][i]
+            y, states = stack.mixer(
+                rms_norm(h, lp["norm"], cfg.norm_eps), i,
+                states=[{"conv": c["conv"][i], "ssm": c["ssm"][i]}
+                        for c in caches])
+            h = h + y
+            for c, st in zip(caches, states):
+                c["conv"][i] = st["conv"]
+                c["ssm"][i] = st["ssm"]
+        if cfg.attn_every:
+            h = stack.block(h, "shared", lens[:, None].long(),
+                            stack.decode_attend(
+                                [(c["k"][g], c["v"][g]) for c in caches],
+                                lens, lens_s, new, window))
+    if cfg.attn_every:
+        for c, (nk, nv), n in zip(caches, new, lens_s):
+            _scatter_new_kv(c["k"], torch.stack(nk), n)
+            _scatter_new_kv(c["v"], torch.stack(nv), n)
+    return stack.head(h[:, 0])
 
 
 def init_cache(cfg, batch, max_len, dtype, device):

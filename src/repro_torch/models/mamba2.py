@@ -153,10 +153,18 @@ def mamba_layer(x, p, cfg, *, state=None, use_kernel=False):
     (B, K-1, Ch), "ssm": (B, H, P, N) float32} -> returns the new state.
     Without (prefill): returns the final state for the decode handoff;
     ``use_kernel`` runs the scan through the SSD kernel's wrapper."""
-    B, S, _ = x.shape
+    y, new_state = _mixer(x @ p["in_proj"], p, cfg, state=state,
+                          use_kernel=use_kernel)
+    return y @ p["out_proj"], new_state
+
+
+def _mixer(zxbcdt, p, cfg, *, state=None, use_kernel=False):
+    """The mixer between its two projections: ``zxbcdt`` (B, S, 2 di + 2 n
+    + h), the whole in_proj output -> (the gated, normed y (B, S, di), the
+    new state), as :func:`mamba_layer` describes."""
+    B, S, _ = zxbcdt.shape
     di, n, h = cfg.d_inner, cfg.ssm.d_state, cfg.ssm_heads
     P = cfg.ssm.head_dim
-    zxbcdt = x @ p["in_proj"]
     z, xBC, dt = _split_proj(zxbcdt, cfg)
     A = -torch.exp(p["A_log"])                                 # (h,) negative
     dt = F.softplus(dt.float() + p["dt_bias"])                 # (B, S, h)
@@ -194,10 +202,54 @@ def mamba_layer(x, p, cfg, *, state=None, use_kernel=False):
         dt1 = dt[:, 0]                                         # (B, h)
         y, ssm_new = ssd_decode_step(xh * dt1[..., None].to(xh.dtype),
                                      dt1 * A[None, :], Bp, Cp, state["ssm"])
-        y = (y + p["D"][None, :, None].float() * xh.float()).to(x.dtype)
+        y = (y + p["D"][None, :, None].float() * xh.float()).to(
+            zxbcdt.dtype)
         y = y.reshape(B, 1, h, P)
         new_state = {"conv": window[:, 1:, :], "ssm": ssm_new}
 
     y = y.reshape(B, S, di)
-    y = rms_norm(y * F.silu(z), p["norm"], cfg.norm_eps)
-    return y @ p["out_proj"], new_state
+    return rms_norm(y * F.silu(z), p["norm"], cfg.norm_eps), new_state
+
+
+def mamba_layer_sharded(x, ps, cfg, gather, reduce, *, states=None,
+                        use_kernel=False):
+    """:func:`mamba_layer` over the shards of a tensor-parallel mesh, with
+    the reference's placement: ``in_proj`` split by columns, ``out_proj``
+    by rows, the rest of the mixer's weights and its state replicated.
+
+    x: (B, S, D) on the lead device; ``ps``: each shard's mixer weights on
+    its device (an unsplit weight is whole on every shard); ``states``:
+    each shard's own copy of the decode state (None: prefill);
+    ``gather(parts)`` concatenates the shards' last dims on the lead
+    device, ``reduce(partials)`` sums them there.
+
+    The column blocks of ``x @ in_proj`` are gathered into the whole
+    ``zxbcdt`` first: the contiguous split cuts across the z / xBC / dt
+    boundaries, so no shard can use its block alone. Each shard then runs
+    the causal conv, the scan (``ssd`` through its wrapper with
+    ``use_kernel``, one call a shard), ``D`` and the gated norm over the
+    full ``d_inner`` on its own copy of the state, and projects its row
+    block of y; the partials are summed by ``reduce``. A projection whose
+    dimension does not divide over the shards is whole on every shard and
+    computed once, on the lead device. Returns (out (B, S, D) on the lead
+    device, each shard's new state)."""
+    whole = 2 * cfg.d_inner + 2 * cfg.ssm.d_state + cfg.ssm_heads
+    if ps[0]["in_proj"].shape[-1] < whole:
+        zxbcdt = gather([x.to(p["in_proj"].device) @ p["in_proj"]
+                         for p in ps])
+    else:
+        zxbcdt = x @ ps[0]["in_proj"]
+    ys, new_states = [], []
+    for s, p in enumerate(ps):
+        y, st = _mixer(zxbcdt.to(p["in_proj"].device), p, cfg,
+                       state=None if states is None else states[s],
+                       use_kernel=use_kernel)
+        ys.append(y)
+        new_states.append(st)
+    rows = ps[0]["out_proj"].shape[0]
+    if rows < cfg.d_inner:
+        out = reduce([y[..., s * rows:(s + 1) * rows] @ p["out_proj"]
+                      for s, (y, p) in enumerate(zip(ys, ps))])
+    else:
+        out = ys[0] @ ps[0]["out_proj"]
+    return out, new_states

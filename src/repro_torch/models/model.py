@@ -55,6 +55,14 @@ class LM:
             generator.manual_seed(0)
         return _backend(self.cfg).init_params(generator, self.cfg)
 
+    def param_shapes(self):
+        """The parameter tree's shapes and dtypes, allocating nothing: the
+        same init run on the ``meta`` device (the counterpart of the
+        reference's ``jax.eval_shape`` of ``init_params``). Every leaf is a
+        meta tensor with ``shape`` and ``dtype``; works at full width on a
+        machine with no card."""
+        return _backend(self.cfg).init_params(_MetaGenerator(), self.cfg)
+
     # -- inputs / outputs --------------------------------------------------
     def embed_inputs(self, params, batch):
         """batch has 'tokens' (B,S) integer or 'embeds' (B,S,D)."""
@@ -137,6 +145,16 @@ class LM:
         return _backend(self.cfg).init_cache(
             self.cfg, batch, max_len, getattr(torch, self.cfg.param_dtype),
             resolve_device(device))
+
+
+class _MetaGenerator(torch.Generator):
+    """A CPU generator that reports the ``meta`` device: the init
+    functions allocate every tensor on ``generator.device``, and random
+    draws into meta tensors take a CPU generator without drawing."""
+
+    @property
+    def device(self):
+        return torch.device("meta")
 
 
 def _cache_ctx_len(cfg, cache):

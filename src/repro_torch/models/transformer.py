@@ -22,11 +22,13 @@ import dataclasses
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.models.layers import (attention_layer, dense_init,
+from repro_torch.models.layers import (attention_layer,
+                                       decode_attention_appended, dense_init,
                                        head_dim_split_attention,
                                        init_attention, init_mlp, mlp_layer,
                                        project_qkv, rms_norm,
                                        split_heads_rope)
+from repro_torch.models.mamba2 import mamba_layer_sharded
 from repro_torch.models.moe import init_moe, moe_ffn, moe_ffn_sharded
 
 
@@ -212,8 +214,8 @@ def init_cache(cfg, batch, max_len, dtype, device):
 
 
 class ServeStack:
-    """The serving backends' layer ops of an attention-family stack, on one
-    device (``shard=None``) or over the N shards of a
+    """The serving backends' layer ops of a decoder stack, on one device
+    (``shard=None``) or over the N shards of a
     :class:`~repro_torch.distributed.sharding.ServeSharding` (Megatron-style
     tensor parallelism, one process driving every shard).
 
@@ -228,7 +230,16 @@ class ServeStack:
     * MoE expert stacks: split over the experts, the router replicated
       (:func:`~repro_torch.models.moe.moe_ffn_sharded`);
     * lm_head (or the tied embedding): column-parallel, the logits
-      concatenated on the lead device.
+      concatenated on the lead device;
+    * the Mamba2 mixer (ssm and hybrid families, :meth:`mixer`): in_proj
+      column-parallel and gathered, the conv, scan and gated norm on every
+      shard's own copy of the state, out_proj row-parallel
+      (:func:`~repro_torch.models.mamba2.mamba_layer_sharded`).
+
+    A layer is addressed by its index in the stacked ``layers``, or by
+    ``"shared"`` for the hybrid's one shared attention + MLP block
+    (``params["shared"]``, not stacked), which every attention op below
+    takes as well.
 
     :meth:`qkv` gives each shard its (q, k, v) at the cache's split
     (``kv_split``): with "heads" shard s holds kv heads [s KH/N, (s+1) KH/N)
@@ -264,10 +275,22 @@ class ServeStack:
             num_kv_heads=cfg.num_kv_heads // self.n) \
             if self.kv_split == "heads" else cfg
 
+    def _lp(self, s: int, i):
+        """Shard ``s``'s parameters of layer ``i`` (an index, or
+        ``"shared"``)."""
+        return self.params[s]["shared"] if i == "shared" \
+            else self.layers[s][i]
+
     def reduce(self, partials):
         """Sum of per-shard partials, on the lead device."""
         return partials[0] if self.n == 1 \
             else self.shard.all_reduce(partials)[0]
+
+    def gather(self, parts):
+        """The shards' parts concatenated along the last dim, on the lead
+        device."""
+        return parts[0] if self.n == 1 \
+            else self.shard.all_gather(parts, dim=-1)
 
     def replicate(self, x):
         """``x`` on every shard's device."""
@@ -305,7 +328,7 @@ class ServeStack:
     def _col(self, x, i, w, b):
         """x @ layer i's attention weight ``w`` (+ bias ``b``), whole, on
         the lead device."""
-        ps = [lay[i]["attn"] for lay in self.layers]
+        ps = [self._lp(s, i)["attn"] for s in range(self.n)]
         split = self._split["wq" if w == "wq" else "wk"]
         outs = []
         for p, dev in list(zip(ps, self.devices))[:self.n if split else 1]:
@@ -318,9 +341,9 @@ class ServeStack:
         the lead device: per shard (q (B,S,H_s,d_s), k and v (B,S,KH_s,d_s))
         on its device, at the cache's split."""
         if self.kv_split == "heads":
-            return [project_qkv(x.to(dev), lay[i]["attn"], self._cfg_s,
-                                positions.to(dev))
-                    for lay, dev in zip(self.layers, self.devices)]
+            return [project_qkv(x.to(dev), self._lp(s, i)["attn"],
+                                self._cfg_s, positions.to(dev))
+                    for s, dev in enumerate(self.devices)]
         q, k, v = split_heads_rope(self._col(x, i, "wq", "bq"),
                                    self._col(x, i, "wk", "bk"),
                                    self._col(x, i, "wv", "bv"), self.cfg,
@@ -335,7 +358,7 @@ class ServeStack:
     def out_proj(self, outs, i: int):
         """Layer ``i``'s output projection of the shards' attention outputs
         (B, S, H_s, d_s) -> (B, S, D) on the lead device."""
-        ps = [lay[i]["attn"]["wo"] for lay in self.layers]
+        ps = [self._lp(s, i)["attn"]["wo"] for s in range(self.n)]
         B, S = outs[0].shape[:2]
         if self.kv_split == "heads":
             return self.reduce([a.reshape(B, S, -1) @ w
@@ -369,10 +392,10 @@ class ServeStack:
         serving path runs it)."""
         key = "moe" if self.cfg.moe else "mlp"
         if not self._split["ffn"]:
-            lp = self.layers[0][i][key]
+            lp = self._lp(0, i)[key]
             return moe_ffn(g, lp, self.cfg, mode="dense")[0] if self.cfg.moe \
                 else mlp_layer(g, lp)
-        ps = [lay[i][key] for lay in self.layers]
+        ps = [self._lp(s, i)[key] for s in range(self.n)]
         if self.cfg.moe:
             return moe_ffn_sharded(g, ps, self.cfg, self.reduce)
         return self.reduce([mlp_layer(g.to(dev), p)
@@ -382,7 +405,49 @@ class ServeStack:
         """One layer on the residual stream h (B, S, D): ``attend(qkv)``
         takes :meth:`qkv`'s per-shard projections, writes the new KV into
         the cache and returns the per-shard attention outputs."""
-        lp, eps = self.layers[0][i], self.cfg.norm_eps
+        lp, eps = self._lp(0, i), self.cfg.norm_eps
         xa = rms_norm(h, lp["norm1"], eps)
         h = h + self.out_proj(attend(self.qkv(xa, i, positions)), i)
         return h + self.ffn(rms_norm(h, lp["norm2"], eps), i)
+
+    def decode_attend(self, kv, lens, lens_s, new, window=0):
+        """The ``attend`` of :meth:`block` for one decode step over a slot
+        cache: ``kv`` the layer's per-shard (k, v) caches (B, KH_s, S,
+        hd_s); ``lens`` (B,) lengths before this token on the lead device,
+        ``lens_s`` the same on every shard's device; ``new`` per-shard
+        (k list, v list) that collect the new token's (B, KH_s, hd_s)
+        vectors, for the caller to write after the layer loop; ``window``
+        the sliding window (0: none)."""
+        def attend(qkv):
+            for (_, k, v), (nk, nv) in zip(qkv, new):
+                nk.append(k[:, 0])
+                nv.append(v[:, 0])
+            if self.kv_split == "heads":
+                return [decode_attention_appended(
+                    q, kc, vc, k[:, 0], v[:, 0], prev_len=n, window=window)
+                    for (q, k, v), (kc, vc), n in zip(qkv, kv, lens_s)]
+
+            def context(s):
+                (kc, vc), (_, k, v) = kv[s], qkv[s]
+                return (torch.cat([kc.transpose(1, 2), k], 1),
+                        torch.cat([vc.transpose(1, 2), v], 1))
+            S = kv[0][0].shape[2]
+            pos = torch.arange(S + 1, device=lens.device)[None, :]
+            prev = lens.long()[:, None]
+            valid = pos < prev
+            if window:
+                valid = valid & (prev - pos < window)
+            valid[:, S] = True                  # the new token itself
+            return self.split_attention([q for q, _, _ in qkv], context,
+                                        valid[:, None])
+        return attend
+
+    # -- the Mamba2 mixer -------------------------------------------------------
+    def mixer(self, x, i: int, states=None, use_kernel=False):
+        """Layer ``i``'s Mamba2 mixer of the normed x (B, S, D) on the lead
+        device: ``states`` each shard's own decode state (None: prefill).
+        Returns (out (B, S, D) on the lead device, each shard's new
+        state)."""
+        return mamba_layer_sharded(
+            x, [lay[i]["mamba"] for lay in self.layers], self.cfg,
+            self.gather, self.reduce, states=states, use_kernel=use_kernel)

@@ -63,13 +63,19 @@ Tensor parallelism (``mesh=``, a ``(1, N)`` mesh from
 splits the parameters and the KV cache over the N shards and
 :class:`~repro_torch.models.transformer.ServeStack` runs every layer loop
 over them, one shard after another; the residual stream, the sampler and
-its state stay on the lead device, and only token ids reach the host. The
-attention families only (ssm and hybrid: ROADMAP Queue 1 item 11b).
+its state stay on the lead device, and only token ids reach the host.
 Kernel dispatch is the reference's: the two paged decode kernels run once
 per shard when N divides the kv heads (``_kernel_sharded``); otherwise the
 cache splits over head_dim and the plain path serves, summing the shards'
-partial scores. Prefill under a mesh runs the plain gather path, and a
-whole prompt goes through the chunked path in one chunk.
+partial scores. Prefill of the attention families under a mesh runs the
+plain gather path, and a whole prompt goes through the chunked path in one
+chunk. The ssm and hybrid families serve on the slot backend, on one
+device or a mesh, through ``hybrid.serve_prefill`` / ``serve_decode_step``
+over the stack; under a mesh the mixers' in_proj
+column-split and gathered, every shard scanning its own copy of the
+replicated ssm/conv state (``ssd`` once per shard and layer under
+``use_kernel``), out_proj row-split; the hybrid's shared attention at each
+shard's kv heads (``flash_attention`` per shard under ``use_kernel``).
 
 Prefill protocol, shared with the engine::
 
@@ -96,8 +102,9 @@ from repro_torch.kernels.paged_attention.ref import (
     fused_decode_attention_sharded_ref, gather_kv,
     paged_attention_sharded_ref)
 from repro_torch.models import LM
-from repro_torch.models.layers import (NEG_INF, chunked_attention,
-                                       decode_attention_appended)
+from repro_torch.models.hybrid import serve_decode_step, serve_prefill
+from repro_torch.models.layers import NEG_INF, chunked_attention
+from repro_torch.models.model import _window_for
 from repro_torch.models.transformer import (ServeStack, _block,
                                             _scatter_new_kv)
 from repro_torch.serving.kv_cache import OutOfPages, PagedKVCache
@@ -268,10 +275,6 @@ class SlotBackend:
     def __init__(self, model: LM, params, *, max_slots: int, max_len: int,
                  use_kernel: bool = False, mesh=None, device=None):
         cfg = model.cfg
-        if mesh is not None and cfg.family not in ATTENTION_FAMILIES:
-            raise NotImplementedError(
-                f"the {cfg.family} family under a tensor-parallel mesh is not "
-                f"ported yet (ROADMAP Queue 1 item 11b)")
         self.shard = ServeSharding(mesh, cfg) if mesh is not None else None
         self.device = _lead_device(device, self.shard)
         if self.shard is None and params["embed"].device != self.device:
@@ -284,21 +287,26 @@ class SlotBackend:
         self.use_kernel = use_kernel
         self.dtype = getattr(torch, cfg.param_dtype)
         self.stack = ServeStack(params, cfg, self.shard)
+        # the model's window for a cache of max_len (the hybrid's long
+        # context), as LM.prefill / decode_step derive it
+        self.window = _window_for(cfg, max_len)
         if self.shard is None:
             self.cache = model.init_cache(max_slots, max_len,
                                           device=self.device)
             self.cache_shards = [self.cache]
         else:
-            # (L, B, KH, S, hd) k/v split over the shards; len on the lead
-            shape = (cfg.num_layers, max_slots, cfg.num_kv_heads, max_len,
-                     cfg.head_dim)
-            spec = self.shard.slot_cache_spec("k", shape)
-            self.cache = {"len": torch.zeros((max_slots,), dtype=torch.int32,
+            # per shard: k/v (L|G, B, KH, S, hd) split by slot_cache_spec,
+            # the ssm/conv states whole; len once, on the lead device
+            like = model.init_cache(max_slots, max_len, device="meta")
+            self.cache = {"len": torch.zeros(like.pop("len").shape,
+                                             dtype=torch.int32,
                                              device=self.device)}
-            self.cache_shards = [
-                {"k": k, "v": v} for k, v in zip(
-                    self.shard.zeros(shape, self.dtype, spec),
-                    self.shard.zeros(shape, self.dtype, spec))]
+            parts = {n: self.shard.zeros(t.shape, t.dtype,
+                                         self.shard.slot_cache_spec(
+                                             n, t.shape))
+                     for n, t in like.items()}
+            self.cache_shards = [{n: p[s] for n, p in parts.items()}
+                                 for s in range(self.shard.model_shards)]
         self.free_slots = list(range(max_slots - 1, -1, -1))
         self.slot_of: dict[str, int] = {}
         self._dec_st = None         # device-resident per-slot decode state
@@ -332,7 +340,8 @@ class SlotBackend:
             chunk = task.remaining
         else:
             chunk = min(max(budget, 1), task.remaining)
-        if task.pos == 0 and chunk == S and self.shard is None:
+        if task.pos == 0 and chunk == S and (
+                self.shard is None or not self.supports_chunked_prefill):
             logits = self._one_shot(task.seq_id, task.prompt)
             task.pos = S
             task.chunks += 1
@@ -355,17 +364,28 @@ class SlotBackend:
         pads attention prompts to power-of-two buckets for jit, which eager
         torch does not need; SSM/hybrid state would be polluted by padding
         anyway). The result overwrites the slot's rows of every cache
-        tensor in place, where the reference inserts a new slot cache."""
+        tensor in place, where the reference inserts a new slot cache.
+        The ssm and hybrid families run through ``hybrid.serve_prefill``
+        on the stack's shards (one on a single device), each writing its
+        own cache; the attention families come here on one device alone
+        (under a mesh they take the chunked path)."""
         slot = self.slot_of[seq_id]
         toks = self._put(prompt, torch.long)[None]
-        logits, one = self.model.prefill(
-            self.stack.params[0], {"tokens": toks}, max_len=self.max_len,
-            moe_mode="dense", use_kernel=self.use_kernel)
-        for key, val in one.items():
-            if key == "len":
-                self.cache["len"][slot] = len(prompt)
-            else:
-                self.cache[key][:, slot] = val[:, 0]
+        if self.cfg.family in ATTENTION_FAMILIES:
+            logits, one = self.model.prefill(
+                self.stack.params[0], {"tokens": toks}, max_len=self.max_len,
+                moe_mode="dense", use_kernel=self.use_kernel)
+            ones = [one]
+        else:
+            logits, ones = serve_prefill(self.stack, toks,
+                                         max_len=self.max_len,
+                                         window=self.window,
+                                         use_kernel=self.use_kernel)
+        for cache, one in zip(self.cache_shards, ones):
+            for key, val in one.items():
+                if key != "len":
+                    cache[key][:, slot] = val[:, 0]
+        self.cache["len"][slot] = len(prompt)
         return logits[0]
 
     def _kv(self, i: int):
@@ -410,37 +430,18 @@ class SlotBackend:
         device -> logits (max_slots, V) on it, the cache updated in place
         (each layer's new KV written after the loop at position ``len``,
         as ``transformer.decode_step`` does)."""
-        st = self.stack
+        st, lens = self.stack, self.cache["len"]
         if self.cfg.family not in ATTENTION_FAMILIES:
-            logits, self.cache = self.model.decode_step(st.params[0], tokens,
-                                                        self.cache)
+            logits = serve_decode_step(st, tokens, self.cache_shards, lens,
+                                       window=self.window)
+            self.cache["len"] = lens + 1
             return logits
-        lens = self.cache["len"]
         lens_s = st.replicate(lens)
         new = [([], []) for _ in range(st.n)]
         h = st.embed(tokens[:, None])
         for i in range(self.cfg.num_layers):
-            def attend(qkv, kv=self._kv(i)):
-                for (_, k, v), (nk, nv) in zip(qkv, new):
-                    nk.append(k[:, 0])
-                    nv.append(v[:, 0])
-                if st.kv_split == "heads":
-                    return [decode_attention_appended(
-                        q, kc, vc, k[:, 0], v[:, 0], prev_len=n)
-                        for (q, k, v), (kc, vc), n in zip(qkv, kv, lens_s)]
-
-                def context(s):
-                    (kc, vc), (_, k, v) = kv[s], qkv[s]
-                    return (torch.cat([kc.transpose(1, 2), k], 1),
-                            torch.cat([vc.transpose(1, 2), v], 1))
-                S = kv[0][0].shape[2]
-                valid = torch.arange(S + 1, device=self.device)[None, :] \
-                    < lens.long()[:, None]
-                valid[:, S] = True                  # the new token itself
-                return st.split_attention([q for q, _, _ in qkv], context,
-                                          valid[:, None])
-
-            h = st.block(h, i, lens[:, None].long(), attend)
+            h = st.block(h, i, lens[:, None].long(),
+                         st.decode_attend(self._kv(i), lens, lens_s, new))
         for c, (nk, nv), n in zip(self.cache_shards, new, lens_s):
             _scatter_new_kv(c["k"], torch.stack(nk), n)
             _scatter_new_kv(c["v"], torch.stack(nv), n)

@@ -49,9 +49,10 @@ is an encoder: it is served by ``serving/embedding.py``, not here.
 Tensor-parallel serving (``mesh``, a ``(1, N)`` mesh from
 ``launch/mesh.py``): both backends (and a speculating engine's draft
 backend) split the model over the mesh's ``model`` axis; see
-``serving/backends.py``. The attention families only: ssm and hybrid
-models under a mesh raise ``NotImplementedError`` (ROADMAP Queue 1 item
-11b).
+``serving/backends.py``. Every decoder family serves on the slot backend;
+the paged backend takes the attention families, as without a mesh. A
+mesh axis other than ``model`` above 1 raises ``NotImplementedError``
+(ROADMAP Queue 1 item 11b).
 """
 from __future__ import annotations
 

@@ -1,0 +1,10 @@
+"""Fixture: every violation explicitly waived (0 findings, 3 suppressed)."""
+
+
+class Backend:
+    def _fused_impl(self, x):
+        a = x.item()  # firstlint: disable=host-sync-in-hot-path -- fixture
+        # firstlint: disable-next-line=host-sync-in-hot-path -- fixture
+        b = x.cpu()
+        c = x.tolist()  # firstlint: disable=all -- fixture
+        return a, b, c

@@ -423,6 +423,20 @@ def test_serve_runs_in_process_on_the_cpu(arch, capsys):
     assert "streamed:" in out
 
 
+def test_serve_shards_a_hybrid_over_a_mesh(monkeypatch, capsys):
+    """``--arch zamba2-2.7b --model-shards 4`` serves (slots, forced for
+    the family), here over four CPU shards standing in for the cards."""
+    from repro_torch.launch.mesh import make_local_mesh
+    monkeypatch.setattr(serve, "make_local_mesh", lambda data, model:
+                        make_local_mesh(data, model,
+                                        devices=["cpu"] * model))
+    serve.main(["--arch", "zamba2-2.7b", "--model-shards", "4", "--stream",
+                "--requests", "4", "--max-tokens", "6"])
+    out = capsys.readouterr().out
+    assert "backend=slots" in out and "shards=4 device=cpu" in out
+    assert "[serve] 4 requests, 24 output tokens" in out
+
+
 def test_serve_refusals(monkeypatch):
     # --model-shards counts the visible cards, as the reference counts
     # its devices: none here

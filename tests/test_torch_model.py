@@ -122,3 +122,25 @@ def test_prefill_and_decode_step_match_jax(lm_factory, arch):
                     atol=1e-4)
     assert tc2["len"].tolist() == np.asarray(jc2["len"]).tolist() \
         == [S + 1] * B
+
+
+@pytest.mark.parametrize("arch", sorted(REGISTRY))
+def test_param_shapes_match_the_reference_at_full_width(arch):
+    """``LM.param_shapes()`` at every registry config's full width (dbrx's
+    132B parameters included): leaf for leaf the reference's
+    ``param_shapes()`` in shape and dtype, every leaf a meta tensor, so
+    nothing is allocated."""
+    from repro.models import make_model as jax_make_model
+    ref = jax_make_model(REGISTRY[arch]).param_shapes()
+    got = make_model(REGISTRY[arch]).param_shapes()
+    ref_leaves = {jax.tree_util.keystr(p): x for p, x in
+                  jax.tree_util.tree_leaves_with_path(ref)}
+    got_leaves = {jax.tree_util.keystr(p): x for p, x in
+                  jax.tree_util.tree_leaves_with_path(
+                      got, is_leaf=lambda x: isinstance(x, torch.Tensor))}
+    assert got_leaves.keys() == ref_leaves.keys()
+    for key, leaf in got_leaves.items():
+        assert leaf.device.type == "meta", key
+        assert tuple(leaf.shape) == ref_leaves[key].shape, key
+        assert str(leaf.dtype).removeprefix("torch.") == \
+            str(ref_leaves[key].dtype), key

@@ -22,8 +22,14 @@ configs:
   Greedy tokens must be identical. For seeded top-p a token may differ
   only where the two engines' teacher-forced logits agree within
   ``TF_TOL`` and still sample differently (a draw decided by rounding);
-* placement invariants after a run, and the ssm/hybrid refusal (ROADMAP
-  Queue 1 item 11b).
+* placement invariants after a run;
+* the ssm and hybrid families (mamba2-130m, zamba2-2.7b) on the slot
+  backend at (1, 2), (1, 3) and (1, 4): the sharded Mamba2 mixer against
+  ``mamba_layer`` (prefill output and final state, one decode step, 1e-5
+  in float32), the engines against both 1-device engines (the same token
+  rules), the replicated ssm/conv states and split k/v after a run, and
+  the kernel wrappers called once per shard; a data axis above 1 still
+  raises, naming ROADMAP Queue 1 item 11b.
 """
 import copy
 
@@ -43,7 +49,10 @@ from repro_torch.kernels.paged_attention import ref as pa_ref
 from repro_torch.launch.mesh import (Mesh, make_local_mesh,
                                      make_production_mesh)
 from repro_torch.models import make_model
+from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.kernels.ssd import ops as ssd_ops
 from repro_torch.models.layers import head_dim_split_attention
+from repro_torch.models.mamba2 import mamba_layer, mamba_layer_sharded
 from repro_torch.models.transformer import ServeStack
 from repro_torch.serving import backends
 from repro_torch.serving.backends import PagedBackend, SlotBackend
@@ -55,6 +64,7 @@ N = 4
 CPU = torch.device("cpu")
 MHA, GQA, MOE, VLM = ("qwen1.5-4b", "llama3.2-3b", "phi3.5-moe-42b-a6.6b",
                       "llava-next-34b")
+SSM, HYBRID = "mamba2-130m", "zamba2-2.7b"
 GREEDY = dict(temperature=0.0)
 TOPP = dict(temperature=0.8, top_p=0.9)
 # teacher-forced logits, mesh against 1 device, relative to their scale:
@@ -397,8 +407,14 @@ def _serve(eng, reqs):
 
 
 def _teacher_forced(tmodel, tparams, mesh, tokens):
-    """Last-position logits of ``tokens`` through a plain paged backend,
-    1 device or ``mesh``."""
+    """Last-position logits of ``tokens`` through a plain paged backend
+    (a slot backend's one-shot prefill for ssm and hybrid), 1 device or
+    ``mesh``."""
+    if tmodel.cfg.family not in backends.ATTENTION_FAMILIES:
+        be = SlotBackend(tmodel, tparams, max_slots=1,
+                         max_len=BASE["max_seq_len"], mesh=mesh,
+                         device="cpu")
+        return be.prefill("s", tokens)
     be = PagedBackend(tmodel, tparams, max_slots=1, max_len=BASE[
         "max_seq_len"], page_size=16, mesh=mesh, device="cpu")
     task = be.start_prefill("s", tokens)
@@ -536,16 +552,173 @@ def test_mesh_swap_round_trip_is_exact(pair):
         assert torch.equal(first[key], second[key])
 
 
-@pytest.mark.parametrize("arch", ["mamba2-130m", "zamba2-2.7b"])
-def test_ssm_and_hybrid_under_a_mesh_name_item_11b(arch):
-    tmodel = make_model(reduced(REGISTRY[arch]))
-    tparams = tmodel.init_params(torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="item 11b"):
-        ContinuousBatchingEngine(tmodel, tparams, EngineConfig(
-            backend="slots", mesh=_mesh()), device="cpu")
+# ---------------------------------------------------------------------------
+# the ssm and hybrid families under a mesh
+# ---------------------------------------------------------------------------
+
+SLOT_KERNEL = dict(backend="slots", use_kernel=True, decode_steps_per_sync=4)
+# case: (arch, shards, engine overrides, sampling, vs jax)
+SSM_CASES = {
+    **{f"{name}-{n}-shards-greedy": (arch, n, SLOT_KERNEL, GREEDY, True)
+       for name, arch in (("ssm", SSM), ("hybrid", HYBRID))
+       for n in (2, 3, 4)},
+    "ssm-4-shards-topp": (SSM, 4, SLOT_KERNEL, TOPP, True),
+    "hybrid-4-shards-topp": (HYBRID, 4, SLOT_KERNEL, TOPP, True),
+    "hybrid-2-shards-per-step": (HYBRID, 2, dict(backend="slots",
+                                                 fused_decode=False),
+                                 GREEDY, False),
+}
+_JAX_STREAMS = {}
+
+
+def _jax_streams(engine_factory, model, params, jreqs, kw, key):
+    """The JAX 1-device engine's streams, once per (arch, case key)."""
+    if key not in _JAX_STREAMS:
+        _JAX_STREAMS[key] = _serve(engine_factory(
+            model, params, **dict(BASE, **kw)), jreqs)
+    return _JAX_STREAMS[key]
+
+
+@pytest.mark.parametrize("case", list(SSM_CASES))
+def test_ssm_and_hybrid_mesh_engine_matches_one_device(
+        case, pair, engine_factory, request_factory):
+    arch, n, kw, sampling, vs_jax = SSM_CASES[case]
+    cfg, model, params, tmodel, tparams = pair(arch)
+    jreqs, reqs = _requests(request_factory, cfg.vocab_size, sampling)
+    mesh = _mesh(n)
+    one = _port_engine(tmodel, tparams, 0, None, **kw)
+    ref = _serve(one, reqs)
+    backends.reset_transfer_stats()
+    eng = _port_engine(tmodel, tparams, 0, mesh, **kw)
+    got = _serve(eng, reqs)
+    _assert_streams(got, ref, reqs, sampling, tmodel, tparams, mesh)
+    if vs_jax:
+        _assert_streams(got, _jax_streams(
+            engine_factory, model, params, jreqs, kw,
+            (arch, sampling["temperature"], tuple(sorted(kw.items())))),
+            reqs, sampling, tmodel, tparams, mesh)
+    if kw.get("fused_decode", True):
+        assert backends.TRANSFER_STATS["decode_logits_transfers"] == 0
+    assert eng.stats == one.stats
+    assert eng.backend.stack.n == n and len(eng.backend.cache_shards) == n
+
+
+@pytest.mark.parametrize("arch", [SSM, HYBRID])
+def test_ssm_and_hybrid_under_a_mesh_name_item_11b(pair, request_factory,
+                                                   arch):
+    """ssm and hybrid models serve under a (1, 4) mesh on the slot backend,
+    the 1-device engine's greedy tokens; the paged backend still takes
+    the attention families only, and a data axis above 1 still raises
+    naming ROADMAP Queue 1 item 11b."""
+    tmodel, tparams = pair(arch)[3:]
+    reqs = _requests(request_factory, tmodel.cfg.vocab_size, GREEDY)[1]
+    streams = [_serve(_port_engine(tmodel, tparams, 0, m, backend="slots"),
+                      reqs) for m in (None, _mesh())]
+    assert streams[0] == streams[1] and len(streams[1]) == len(reqs)
     with pytest.raises(ValueError, match="attention families"):
         PagedBackend(tmodel, tparams, max_slots=2, max_len=64,
                      mesh=_mesh(), device="cpu")
+    with pytest.raises(NotImplementedError, match="item 11b"):
+        ContinuousBatchingEngine(tmodel, tparams, EngineConfig(
+            backend="slots", mesh=make_local_mesh(2, 2, devices=[CPU] * 4)),
+            device="cpu")
+
+
+@pytest.mark.parametrize("n", [2, 3, 4])
+@pytest.mark.parametrize("arch", [SSM, HYBRID])
+def test_sharded_mixer_matches_mamba_layer(pair, arch, n):
+    """The sharded mixer's prefill output and final state, then one
+    decode step from that state, against ``mamba_layer`` (float32)."""
+    tmodel, tparams = pair(arch)[3:]
+    cfg = tmodel.cfg
+    sh = ServeSharding(_mesh(n), cfg)
+    stack = ServeStack(tparams, cfg, sh)
+    i = cfg.num_layers - 1
+    whole = ServeStack(tparams, cfg).layers[0][i]["mamba"]
+    ps = [lay[i]["mamba"] for lay in stack.layers]
+    # reduced widths: in_proj 296 columns, out_proj 128 rows -- both split
+    # at 2 and 4 shards, whole on every shard at 3
+    split = n != 3
+    assert (ps[0]["in_proj"].shape[-1] * n
+            == whole["in_proj"].shape[-1]) == split
+    assert (ps[0]["out_proj"].shape[0] * n
+            == whole["out_proj"].shape[0]) == split
+    g = torch.Generator().manual_seed(n)
+    x = torch.randn((2, 45, cfg.d_model), generator=g)
+    want, wstate = mamba_layer(x, whole, cfg)
+    got, states = mamba_layer_sharded(x, ps, cfg, stack.gather,
+                                      stack.reduce)
+    tol = dict(rtol=1e-5, atol=1e-5)
+    assert_allclose(got.numpy(), want.numpy(), **tol)
+    assert len(states) == n
+    for st in states:
+        for key in ("ssm", "conv"):
+            assert_allclose(st[key].numpy(), wstate[key].numpy(), **tol)
+    x1 = torch.randn((2, 1, cfg.d_model), generator=g)
+    want1, wstate1 = mamba_layer(x1, whole, cfg, state=wstate)
+    got1, states1 = mamba_layer_sharded(x1, ps, cfg, stack.gather,
+                                        stack.reduce, states=states)
+    assert_allclose(got1.numpy(), want1.numpy(), **tol)
+    for st in states1:
+        for key in ("ssm", "conv"):
+            assert_allclose(st[key].numpy(), wstate1[key].numpy(), **tol)
+
+
+def test_ssm_state_replicated_and_kv_split_after_a_run(pair,
+                                                        request_factory):
+    """After a hybrid run on four shards every shard holds a whole copy of
+    its own of the ssm and conv states, equal to the 1-device cache, and
+    a quarter of the kv heads of k/v; the length vector is whole on the
+    lead device."""
+    cfg, _, _, tmodel, tparams = pair(HYBRID)
+    reqs = _requests(request_factory, cfg.vocab_size, GREEDY)[1]
+    engines = [_port_engine(tmodel, tparams, 0, m, **SLOT_KERNEL)
+               for m in (None, _mesh())]
+    for e in engines:
+        _serve(e, reqs)
+    one, be = (e.backend for e in engines)
+    G = cfg.num_layers // cfg.attn_every
+    ptrs = set()
+    for c in be.cache_shards:
+        for key in ("ssm", "conv"):
+            assert c[key].shape == one.cache[key].shape
+            assert_allclose(c[key].numpy(), one.cache[key].numpy(),
+                            rtol=1e-5, atol=1e-5)
+            ptrs.add(c[key].data_ptr())
+        for key in ("k", "v"):
+            assert c[key].shape == (G, BASE["max_slots"],
+                                    cfg.num_kv_heads // N,
+                                    BASE["max_seq_len"], cfg.head_dim)
+        assert "len" not in c
+    assert len(ptrs) == 2 * N
+    assert torch.equal(be.cache["len"], one.cache["len"])
+
+
+@pytest.mark.parametrize("arch", [SSM, HYBRID])
+def test_mesh_prefill_calls_the_kernel_wrappers_once_per_shard(
+        pair, monkeypatch, arch):
+    """With the kernel tier a one-shot prompt calls ``ssd`` once per layer
+    and shard, and the hybrid's ``flash_attention`` once per shared-block
+    application and shard, each at the shard's heads (on the CPU the
+    wrappers run their plain versions; chip_smoke.py phase 8d counts the
+    launches on the card)."""
+    tmodel, tparams = pair(arch)[3:]
+    cfg = tmodel.cfg
+    calls = {"ssd": [], "flash_attention": []}
+    for mod, name in ((ssd_ops, "ssd"), (flash_ops, "flash_attention")):
+        def counted(*a, _fn=getattr(mod, name), _name=name, **kw):
+            calls[_name].append(a[0].shape)
+            return _fn(*a, **kw)
+        monkeypatch.setattr(mod, name, counted)
+    be = SlotBackend(tmodel, tparams, max_slots=2, max_len=64,
+                     use_kernel=True, mesh=_mesh(), device="cpu")
+    prompts = [list(range(3, 3 + s)) for s in (9, 40)]
+    for i, p in enumerate(prompts):
+        be.prefill(f"s{i}", p)
+    G = cfg.num_layers // cfg.attn_every if cfg.attn_every else 0
+    assert len(calls["ssd"]) == len(prompts) * cfg.num_layers * N
+    assert len(calls["flash_attention"]) == len(prompts) * G * N
+    assert all(q[2] == cfg.num_heads // N for q in calls["flash_attention"])
 
 
 def test_mesh_backend_device_is_the_lead(pair):
