@@ -175,7 +175,19 @@ package. Phases, each of which raises on a failed check (exit code 1):
       jumping a 96-request batch flood (preemptions), 500 JSONL lines
       through ``FirstClient.create_batch``; rates printed as modelled by
       the DES, with its host wall time.
-10. A ``{"metrics": ...}`` line (phase 9's under ``core_metrics``), a
+10. The dry run (``repro_torch.launch.dryrun``, its step analysis on the
+   ``meta`` device) against the card:
+   a. phase 7b's train step analysed, then run on the card under
+      ``FlopCounterMode``: the matmul FLOPs and the argument bytes must
+      be equal; the predicted peak live bytes over
+      ``max_memory_allocated`` and the roofline (compute + memory) over
+      the measured step are printed;
+   b. a decode step at phase 3's batch and mean context: its roofline
+      beside the cost model's and phase 3's measured device time;
+   c. ``DRYRUN_CELLS`` on both production meshes, every record ok.
+   No port kernel launches in it.
+11. A ``{"metrics": ...}`` line (phase 9's under ``core_metrics``, phase
+   10's under ``dryrun_metrics``), a
    ``{"kernels": [...]}`` line (each kernel's launches under a mesh as
    ``tp_launches``: phase 8a's decode kernels, phase 8d's zamba2 ``ssd``
    and ``flash_attention``), the nvidia-smi line, and last
@@ -3908,6 +3920,181 @@ def run_control_plane():
     return metrics
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the dry run's step analysis against the card
+# ---------------------------------------------------------------------------
+
+# 10c's cells: llama3.2-3b's three shapes and dbrx-132b's decode, each on
+# both production meshes
+DRYRUN_CELLS = (("llama3.2-3b", "train_4k"), ("llama3.2-3b", "prefill_32k"),
+                ("llama3.2-3b", "decode_32k"), ("dbrx-132b", "decode_32k"))
+
+
+def meta_like(torch, tree):
+    """Meta tensors of ``tree``'s shapes and dtypes (nested dicts)."""
+    if isinstance(tree, dict):
+        return {k: meta_like(torch, v) for k, v in tree.items()}
+    return torch.empty(tree.shape, dtype=tree.dtype, device="meta")
+
+
+def dry_run_train(torch, dev):
+    """10a: phase 7b's step (llama3.2-3b whole, bf16, B=8, S=1024, two
+    microbatches, remat, in-place AdamW) analysed on meta, then run on the
+    card under FlopCounterMode and timed."""
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.configs import REGISTRY
+    from repro_torch.data.tokens import TokenDataset
+    from repro_torch.launch.step_analysis import analyze_step
+    from repro_torch.models import make_model
+    from repro_torch.training.optimizer import AdamWConfig, adamw_init
+    from repro_torch.training.train import batch_to, make_train_step
+    from repro_torch.tree import tree_leaves
+    cfg = REGISTRY["llama3.2-3b"]
+    model = make_model(cfg)
+    B, S, n = FULL_TRAIN_BATCH, FULL_TRAIN_SEQ, FULL_TRAIN_MICRO
+    step = make_train_step(model, AdamWConfig(lr=FULL_TRAIN_LR,
+                                              warmup_steps=0),
+                           num_microbatches=n, remat=True, in_place=True)
+    batch = batch_to(TokenDataset(cfg.vocab_size, S, B, seed=0)
+                     .next_batch(), dev)
+    shapes = model.param_shapes()
+    res = analyze_step(step, shapes, adamw_init(shapes),
+                       meta_like(torch, batch))
+    print(f"phase 10a: {cfg.name} whole, phase 7b's step (B={B} S={S}, "
+          f"{n} microbatches, remat) analysed on meta in "
+          f"{res['analyze_s']:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = model.init_params(torch.Generator(device=dev).manual_seed(0))
+    opt = adamw_init(params)
+    card_bytes = sum(t.numel() * t.element_size()
+                     for t in tree_leaves({"p": params, "o": opt,
+                                           "b": batch}))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with FlopCounterMode(display=False) as fc:
+        params, opt, _ = step(params, opt, batch)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    counted = fc.get_total_flops()
+    secs = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, batch)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    check(math.isfinite(float(m["loss"])), "10a: the step's loss is not "
+          "finite")
+    step_s = statistics.median(secs[1:])
+    roof = res["compute_s"] + res["memory_s"]
+    predicted_peak = res["argument_size_in_bytes"] + res["temp_size_in_bytes"]
+    out = {"dot_flops": res["dot_flops"], "card_flops": counted,
+           "argument_bytes": res["argument_size_in_bytes"],
+           "card_argument_bytes": card_bytes,
+           "temp_bytes": res["temp_size_in_bytes"],
+           "predicted_peak_bytes": predicted_peak, "card_peak_bytes": peak,
+           "traffic_bytes": res["traffic_bytes"],
+           "compute_s": res["compute_s"], "memory_s": res["memory_s"],
+           "step_ms": step_s * 1e3, "step_s_all": secs,
+           "analyze_s": res["analyze_s"]}
+    print(f"  dot_flops: analysis {res['dot_flops']:.0f}, FlopCounterMode on "
+          f"the card {counted}; argument bytes: analysis "
+          f"{res['argument_size_in_bytes']}, the card's tensors {card_bytes}")
+    print(f"  peak live: predicted {predicted_peak / 1e9:.3f} GB (arguments "
+          f"+ temp {res['temp_size_in_bytes'] / 1e9:.3f} GB), "
+          f"max_memory_allocated {peak / 1e9:.3f} GB: ratio "
+          f"{predicted_peak / peak:.3f}")
+    print(f"  roofline: compute {res['compute_s'] * 1e3:.1f} ms + memory "
+          f"{res['memory_s'] * 1e3:.1f} ms (traffic "
+          f"{res['traffic_bytes'] / 1e9:.1f} GB) over the measured step "
+          f"{step_s * 1e3:.1f} ms (median of steps 2 and 3): "
+          f"{roof / step_s:.3f}")
+    check(res["dot_flops"] == counted and res["flop_counter_flops"] ==
+          counted, f"10a: the analysis counts {res['dot_flops']} matmul "
+          f"FLOPs, FlopCounterMode on the card {counted}")
+    check(res["argument_size_in_bytes"] == card_bytes,
+          f"10a: argument bytes {res['argument_size_in_bytes']} vs the "
+          f"card's {card_bytes}")
+    del params, opt, m
+    return out
+
+
+def dry_run_decode(torch, engine):
+    """10b: a decode step at phase 3's geometry (its batch and mean
+    context) analysed on meta, beside the cost model's roofline and phase
+    3's measured device time."""
+    from repro_torch.configs import REGISTRY
+    from repro_torch.launch.step_analysis import analyze_step
+    from repro_torch.models import make_model
+    from repro_torch.serving import costmodel as cm
+    cfg = REGISTRY["llama3.2-3b"]
+    model = make_model(cfg)
+    B, ctx = engine["decode_batch"], round(engine["decode_mean_ctx"])
+    res = analyze_step(model.decode_step, model.param_shapes(),
+                       torch.empty((B,), dtype=torch.int32, device="meta"),
+                       model.init_cache(B, ctx, device="meta"))
+    roof = max(res["compute_s"], res["memory_s"]) * 1e3
+    cost_roof = max(cm.InstanceCost(cfg=cfg, chips=1)._decode_roofline(
+        B, ctx)) * 1e3
+    devm = engine["decode_step_device_ms"]
+    print(f"phase 10b: {cfg.name} decode step, {B} sequences at context "
+          f"{ctx} (phase 3's mean), plain path on meta: compute "
+          f"{res['compute_s'] * 1e3:.3f} ms, memory {res['memory_s'] * 1e3:.3f}"
+          f" ms (traffic {res['traffic_bytes'] / 1e9:.3f} GB): roofline "
+          f"{roof:.3f} ms; costmodel roofline {cost_roof:.3f} ms; phase 3 "
+          f"measured " + (f"{devm:.3f} ms" if devm else "not measured")
+          + " device time a step (kernel path)")
+    check(math.isfinite(roof) and roof > 0, "10b: the decode roofline")
+    return {"batch": B, "ctx": ctx, "dot_flops": res["dot_flops"],
+            "traffic_bytes": res["traffic_bytes"], "roofline_ms": roof,
+            "costmodel_roofline_ms": cost_roof, "phase3_device_ms": devm}
+
+
+def dry_run_sweep():
+    """10c: the dry run's cells of ``DRYRUN_CELLS`` on both production
+    meshes, records under ``results/dryrun_torch`` (the dry run's default,
+    ignored by git)."""
+    from repro_torch.launch import dryrun
+    out_dir = str(ROOT / "results" / "dryrun_torch")
+    print("phase 10c: the dry run on the production meshes (meta)")
+    recs = {}
+    for arch, shape in DRYRUN_CELLS:
+        for multi in (False, True):
+            t0 = time.perf_counter()
+            rec = dryrun.run_cell(arch, shape, multi, out_dir)
+            took = time.perf_counter() - t0
+            check(rec["ok"], f"10c: {arch} x {shape} failed: "
+                  f"{rec.get('error')}")
+            recs[f"{rec['mesh']}_{arch}_{shape}"] = {
+                "s": took, "dot_flops": rec["dot_flops"],
+                "argument_bytes": rec["argument_size_in_bytes"],
+                "collective_bytes": rec["collective_bytes"],
+                "compute_s": rec["compute_s"], "memory_s": rec["memory_s"],
+                "collective_s": rec["collective_s"]}
+            print(f"  {rec['mesh']:6s} {arch} x {shape}: {took:.1f} s")
+    return recs
+
+
+def run_dry_run(torch, dev, engine):
+    """Phase 10. No port kernel may launch in it: the analysis and its
+    card check run the plain path."""
+    from repro_torch.kernels import _build
+    t_phase = time.perf_counter()
+    _build.reset_launches()
+    out = {"train": dry_run_train(torch, dev)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["decode"] = dry_run_decode(torch, engine)
+    out["sweep"] = dry_run_sweep()
+    launched = {k: v for k, v in {**_build.LAUNCHES,
+                                  **_build.PASS_LAUNCHES}.items() if v}
+    check(not launched, f"phase 10 launched port kernels: {launched}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"  phase 10 in {out['phase_s']:.1f} s")
+    return out
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         fail(f"{SRC / 'repro_torch'} not found: run from a checkout")
@@ -3965,6 +4152,9 @@ def main() -> int:
     core_metrics = run_cost_model(torch, dev, metrics,
                                   spec_metrics["swap"], family_metrics["moe"])
     core_metrics["des"] = run_control_plane()
+    gc.collect()
+    torch.cuda.empty_cache()
+    dryrun_metrics = run_dry_run(torch, dev, metrics)
 
     replaces = {
         "paged_attention": ("src/repro_torch/csrc/paged_attention.cu",
@@ -4019,6 +4209,7 @@ def main() -> int:
                       "train_metrics": train_metrics,
                       "tp_metrics": tp_metrics,
                       "core_metrics": core_metrics,
+                      "dryrun_metrics": dryrun_metrics,
                       "hubert_flash_attention": timing[
                           "flash_attention hubert"],
                       "decode_kernel": decode, "ssd_kernel": ssd_kernel,

@@ -12,9 +12,13 @@ metadata, paths, arrays}: ``paths`` are the leaves' key paths joined with
 headerless zstd files. A write is atomic (tmp + rename). MessagePack's
 bin 32 limits each leaf to 4 GiB, as in the reference.
 
-The reference's ``shardings`` argument (elastic restore onto a mesh) waits
-for the dry run (ROADMAP Queue 1 item 16), its only caller in the
-reference.
+``load_checkpoint(..., shardings=)`` is the reference's elastic restore:
+where the reference re-places each array by a tree of ``NamedSharding``s
+for the current mesh, the port takes a ``ServeSharding`` (its per-shard
+placement) and returns ``shardings.shard_params(tree)``, one tree per
+shard. A file written on any mesh, or on one device, restores onto the
+current mesh; ``shardings.gather_params`` gives the whole tree back. The
+reference has no caller of the argument; the port's tests hold it.
 """
 from __future__ import annotations
 
@@ -120,12 +124,18 @@ def _to_tensor(spec, device):
     return torch.from_numpy(arr.copy()).to(device)
 
 
-def load_checkpoint(path: str, target=None, device=None):
+def load_checkpoint(path: str, target=None, device=None, shardings=None):
     """Returns (tree, step, metadata). ``target`` (a tree of the same
     structure) restores the original structure; without it a flat
     {path: tensor} dict is returned. Tensors keep the stored dtype and go
     to ``device`` (default: the CUDA device, RuntimeError without a
-    card)."""
+    card). ``shardings`` (a ``ServeSharding`` of the current mesh, with a
+    ``target``) places the restored parameter tree on the mesh: the tree
+    comes back as ``shardings.shard_params(tree)``, a list of per-shard
+    trees, each on its shard's device."""
+    if shardings is not None and target is None:
+        raise ValueError("shardings= places a parameter tree: pass the "
+                         "target tree too")
     dev = resolve_device(device)
     with open(path, "rb") as f:
         payload = _msgpack.unpackb(_decompress(f.read()))
@@ -142,6 +152,8 @@ def load_checkpoint(path: str, target=None, device=None):
         raise KeyError(f"checkpoint missing {len(missing)} arrays, "
                        f"e.g. {missing[:3]}")
     tree = tree_unflatten(target, [by_path[p] for p in t_paths])
+    if shardings is not None:
+        tree = shardings.shard_params(tree)
     return tree, payload["step"], payload["metadata"]
 
 

@@ -7,10 +7,17 @@ hint that changes what runs is ``ce_chunk``: ``LM.train_loss`` then
 computes the LM loss in vocab chunks of that size (``_chunked_ce``), never
 materializing the full (tokens, V) logits.
 
-The reference's ``constrain`` and ``constrain_batch`` insert mesh sharding
-constraints; they are not here and wait for the dry run (ROADMAP Queue 1
-item 16), their only caller in the reference, as do the mesh axes below,
-which the port carries but does not read.
+The mesh hints (``attn_dp``, ``batch_axes``, ``moe_ep``, ``dp``) are read
+at the reference's call sites in the model code: the full-sequence
+attention of ``models/layers.py`` (q, k and v under ``attn_dp``, its output
+under ``batch_axes``) and the grouped expert combine of ``models/moe.py``
+(the expert outputs under ``moe_ep``). The reference's ``constrain`` and
+``constrain_batch`` insert GSPMD sharding constraints there; the port runs
+explicit programs and has no GSPMD, so its two functions return ``x``
+unchanged. Inside the dry run's step analysis
+(``launch/step_analysis.py``, which installs itself with
+:func:`recording`) they also tell it of the reshard: its collective bytes
+and the batch split the attention then runs at on one shard.
 """
 from __future__ import annotations
 
@@ -36,6 +43,7 @@ class ShardingHints:
 
 
 _POLICY: ShardingHints | None = None
+_RECORDER = None        # the active step analysis, or None
 
 
 def current() -> ShardingHints | None:
@@ -51,3 +59,35 @@ def use_hints(policy: ShardingHints):
         yield policy
     finally:
         _POLICY = prev
+
+
+@contextmanager
+def recording(recorder):
+    """Route :func:`constrain` and :func:`constrain_batch` to
+    ``recorder.reshard(x, spec_axes, kind)`` for the duration."""
+    global _RECORDER
+    prev = _RECORDER
+    _RECORDER = recorder
+    try:
+        yield recorder
+    finally:
+        _RECORDER = prev
+
+
+def constrain(x, spec_axes):
+    """``x`` placed at the per-dimension axes ``spec_axes`` (a mesh axis, a
+    tuple of axes or None per dimension). Returns ``x`` unchanged; a step
+    analysis records the reshard as an all-gather (the reference's one
+    caller replicates the expert dimension before a shard-local gather)."""
+    if _RECORDER is not None:
+        _RECORDER.reshard(x, tuple(spec_axes), "all-gather")
+    return x
+
+
+def constrain_batch(x, axes):
+    """``x`` with its batch dimension over ``axes`` (the rest whole), or
+    ``x`` as it is when ``axes`` is None. Returns ``x`` unchanged; a step
+    analysis records the reshard as an all-to-all."""
+    if axes is not None and _RECORDER is not None:
+        _RECORDER.reshard(x, (axes,) + (None,) * (x.dim() - 1), "all-to-all")
+    return x

@@ -13,6 +13,8 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import hints as _hints
+
 NEG_INF = -1e30
 
 
@@ -265,7 +267,16 @@ def attention_layer(x, p, cfg, *, positions, cache=None, cache_index=None,
                 flash_attention as attend
         else:
             attend = chunked_attention
+        hp = _hints.current()
+        if hp is not None and hp.attn_dp is not None:
+            # the batch over (data x model) for the attention, where the
+            # heads do not divide the model axis (the reference's hint)
+            q = _hints.constrain_batch(q, hp.attn_dp)
+            k = _hints.constrain_batch(k, hp.attn_dp)
+            v = _hints.constrain_batch(v, hp.attn_dp)
         out = attend(q, k, v, causal=cfg.causal, window=window)
+        if hp is not None and hp.attn_dp is not None:
+            out = _hints.constrain_batch(out, hp.batch_axes)
         new_cache = (k, v) if return_kv else None
     else:
         out = decode_attention_appended(q, cache["k"], cache["v"], k[:, 0],

@@ -18,8 +18,10 @@ Two execution modes, as in the reference:
 Top-k selections break ties toward the lower index, as ``lax.top_k`` does
 (a stable descending sort): ``torch.topk`` promises no order for ties.
 Under a tensor-parallel mesh :func:`moe_ffn_sharded` splits "dense" mode
-over the experts (the reference's expert-parallel hint, a branch of its
-grouped mode for GSPMD, is not needed for it).
+over the experts. The reference's expert-parallel hint (``moe_ep``, a
+branch of its grouped mode for GSPMD) sits at the same place of the
+grouped gather combine; it changes nothing on one device and tells the
+dry run's step analysis of the reshard.
 """
 from __future__ import annotations
 
@@ -28,6 +30,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import hints as _hints
 from repro_torch.models.layers import dense_init, dense_init_stacked
 
 
@@ -133,7 +136,13 @@ def moe_ffn(x, p, cfg, mode="grouped", combine="gather"):
         pos = torch.full((B, S, E), cap, dtype=torch.long, device=x.device)
         pos[bb, topc_idx, ee] = cc
         slot = pos.gather(2, idx)                               # (B,S,k)
-        y_pad = F.pad(y.to(x.dtype), (0, 0, 0, 1))              # slot==cap -> 0
+        y = y.to(x.dtype)
+        hp = _hints.current()
+        if hp is not None and hp.moe_ep:
+            # the experts replicated before the gather (the reference's
+            # hint; one device is unchanged)
+            y = _hints.constrain(y, (hp.dp or ("data",), None, None, None))
+        y_pad = F.pad(y, (0, 0, 0, 1))                          # slot==cap -> 0
         yk = y_pad[bb, idx, slot]                               # (B,S,k,D)
         out = torch.einsum("bskd,bsk->bsd", yk.float(), gates)
         return out.to(x.dtype), aux

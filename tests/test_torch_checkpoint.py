@@ -201,6 +201,53 @@ def test_port_checkpoint_loads_in_jax(tmp_path):
     assert jflat["bf"].dtype == jnp.bfloat16
 
 
+@pytest.mark.parametrize("shards", [2, 4])
+@pytest.mark.parametrize("writer", ["reference", "port"])
+def test_load_checkpoint_onto_a_mesh(tmp_path, writer, shards):
+    """``load_checkpoint(shardings=)`` (elastic restore): a bf16 parameter
+    tree written by either package, on one device, restores onto a
+    (1, N) CPU mesh as N per-shard trees split by the serving rules;
+    ``gather_params`` gives back the saved tree bit for bit, and without
+    ``shardings`` the load is as before (one tree)."""
+    import dataclasses
+
+    from repro.configs import REGISTRY as JREG
+    from repro.configs import reduced as jreduced
+    from repro.models import make_model as jax_make_model
+    from repro_torch.distributed.sharding import ServeSharding
+    from repro_torch.launch.mesh import make_local_mesh
+
+    jcfg = dataclasses.replace(jreduced(JREG["llama3.2-3b"]),
+                               param_dtype="bfloat16")
+    cfg = dataclasses.replace(reduced(REGISTRY["llama3.2-3b"]),
+                              param_dtype="bfloat16")
+    jparams = jax.tree.map(np.asarray, jax_make_model(jcfg).init_params(
+        jax.random.PRNGKey(4)))
+    path = str(tmp_path / "params.ckpt")
+    if writer == "reference":
+        jax_ckpt.save_checkpoint(path, jparams, step=7)
+    else:
+        save_checkpoint(path, params_from_jax_numpy(jparams, cfg, "cpu"),
+                        step=7)
+    sh = ServeSharding(make_local_mesh(1, shards, devices=["cpu"] * shards),
+                       cfg)
+    target = make_model(cfg).param_shapes()
+    trees, step, _ = load_checkpoint(path, target, device="cpu",
+                                     shardings=sh)
+    assert step == 7 and len(trees) == shards
+    wq = trees[0]["layers"]["attn"]["wq"]
+    assert wq.dtype == torch.bfloat16 and wq.shape[-1] == cfg.q_dim // shards
+    assert trees[1]["embed"].shape[0] == cfg.vocab_size // shards
+    whole = sh.gather_params(trees)
+    plain, _, _ = load_checkpoint(path, target, device="cpu")
+    for a, b, j in zip(tree_leaves(whole), tree_leaves(plain),
+                       jax.tree.leaves(jparams)):
+        assert np.array_equal(_np(a), _np(b))
+        assert np.array_equal(_np(a), _np(j))
+    with pytest.raises(ValueError, match="target"):
+        load_checkpoint(path, device="cpu", shardings=sh)
+
+
 def test_port_payload_is_msgpack_bytes(tmp_path):
     """The decompressed payload of a port-written file is what
     ``msgpack.packb`` makes of the same object, byte for byte."""
