@@ -118,9 +118,10 @@ package. Phases, each of which raises on a failed check (exit code 1):
    f. ``python -m repro_torch.launch.train`` as subprocesses: 3 steps,
       a rerun to 6 that resumes at 3, a fresh run to 6: equal last loss;
    g. ``flash_attention`` refuses a q that requires grad.
-8. Tensor-parallel serving: four shards of a ``(1, 4)`` mesh on the one
-   card (``make_local_mesh(1, 4, devices=[card] * 4)``), bf16 random
-   weights, each part after the previous one's weights are freed:
+8. Mesh serving: four shards of a ``(1, 4)`` mesh on the one card
+   (``make_local_mesh(1, 4, devices=[card] * 4)``; 8e a (2, 2) mesh),
+   bf16 random weights, each part after the previous one's weights are
+   freed:
    a. llama3.2-3b whole on phase 3's settings (8 kv heads, 2 a shard):
       phase 3's 8 requests through the fused K=8 path
       (``fused_decode_attention`` once per shard, layer and step:
@@ -153,6 +154,19 @@ package. Phases, each of which raises on a failed check (exit code 1):
       on the same mesh: 4 prompts (``ssd``: prompts x 24 x 4),
       teacher-forced against 1 device within max(LOGITS_TOL,
       SPREAD_FACTOR x its own plain-tier spread).
+   e. dbrx-132b at full width, 3 of 40 layers (22.02 GB of bf16 weights:
+      over the serving rule's 8 GiB a model shard at M = 2), on a (1, 2)
+      mesh and then a (2, 2) mesh of the one card, the (2, 2) weights
+      FSDP-split over ``data`` by the rule's own threshold and gathered a
+      layer at a time: each position's weight bytes against the specs'
+      prediction; 4 requests of 256 to 512 tokens, 16 new tokens each
+      (``fused_decode_attention`` = fused steps x 3 x 2 an engine), the
+      same tokens and stats on both meshes; each engine's decode step
+      (host and device clock) and peak memory; then teacher-forced, every
+      tier routed by the 1-device decisions: (2, 2) against (1, 2) bit
+      for bit (where not, the first difference is traced and the two are
+      held to LOGITS_TOL), (1, 2) against one device within LOGITS_TOL,
+      and a (2, 2) decode forward's gathers against the specs'.
 9. The control plane and the cost model (``repro_torch.core``,
    ``repro_torch.serving.costmodel`` with its committed H100 constants):
    a. the model against phase 3's llama3.2-3b windows: for K=8, K=1 and
@@ -189,8 +203,8 @@ package. Phases, each of which raises on a failed check (exit code 1):
 11. A ``{"metrics": ...}`` line (phase 9's under ``core_metrics``, phase
    10's under ``dryrun_metrics``), a
    ``{"kernels": [...]}`` line (each kernel's launches under a mesh as
-   ``tp_launches``: phase 8a's decode kernels, phase 8d's zamba2 ``ssd``
-   and ``flash_attention``), the nvidia-smi line, and last
+   ``tp_launches``: phase 8a's decode kernels and 8e's fused path,
+   phase 8d's zamba2 ``ssd`` and ``flash_attention``), the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -3598,15 +3612,338 @@ def run_tp_hybrid(torch, dev, one_device):
     return metrics
 
 
+FSDP_LAYERS = 3                # of dbrx-132b's 40: 22.02 GB of bf16 weights,
+#                                above the serving rule's 8 GiB a model shard
+#                                at M = 2 (2 layers, 15.5 GB, would not be)
+FSDP_LENS = (256, 341, 427, 512)     # linspace(256, 512, 4)
+FSDP_TOKENS = 16               # new tokens a request: two fused K=8 calls
+
+
+def position_bytes(shards):
+    """Weight bytes each mesh position (d, m) holds: model shard m's
+    tensors on (0, m), slice d of a data-split leaf on (d, m)."""
+    from repro_torch.distributed.sharding import DataSlices
+    got = {}
+    for m, tree in enumerate(shards):
+        for x in leaves(tree):
+            for d, p in enumerate(x.parts if isinstance(x, DataSlices)
+                                  else [x]):
+                got[(d, m)] = got.get((d, m), 0) + p.numel() \
+                    * p.element_size()
+    return got
+
+
+def spec_bytes(sh, params):
+    """(the bytes each position (d, m) should hold by the serving specs,
+    the bytes one forward gathers, the gathers one forward makes): a
+    model-split leaf's 1/M on (0, m), a data-split leaf's 1/(M D) on every
+    (d, m), a replicated leaf whole on every (0, m)."""
+    from repro_torch.distributed.sharding import _axis_dim
+    from repro_torch.tree import tree_leaves
+    D, M = sh.data_shards, sh.model_shards
+    want = {(d, m): 0 for d in range(D) for m in range(M)}
+    specs = sh.rules.param_specs(params)
+    gathered = 0
+    for name in params:
+        for x, spec in zip(tree_leaves(params[name]),
+                           tree_leaves(specs[name])):
+            n = x.numel() * x.element_size()
+            if _axis_dim(spec, "model") is not None:
+                n //= M
+            split = D > 1 and _axis_dim(spec, "data") is not None
+            gathered += n * M if split else 0
+            for d, m in want:
+                want[(d, m)] += n // D if split else (n if d == 0 else 0)
+    per_layer = sum(_axis_dim(s, "data") is not None
+                    for s in tree_leaves(specs["layers"])) if D > 1 else 0
+    top = sum(_axis_dim(specs[k], "data") is not None
+              for k in ("embed", "lm_head") if k in specs) if D > 1 else 0
+    calls = (per_layer * sh.cfg.num_layers + top) * M
+    return want, gathered, calls
+
+
+def fsdp_tiers(torch, model, params, dev, tiers, prompts, steps):
+    """Kernel-tier paged backends built one at a time (``tiers``: name ->
+    mesh, the first one None), each fed the same prompts (512-token
+    chunks) and then ``steps`` per-step decodes of the first tier's greedy
+    tokens, the MoE routing of every later tier forced to the first
+    tier's decisions (as phase 8c). Returns (name -> list of float32
+    logits arrays, the gather calls and bytes of the last tier's first
+    decode forward)."""
+    import numpy as np
+    from repro_torch.distributed import sharding
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.serving.backends import PagedBackend
+    moe = model.cfg.moe
+    E, k = (moe.num_experts, moe.top_k) if moe else (0, 0)
+    first = next(iter(tiers))
+    log = {"on": first, "calls": 0, first: []}
+    orig_routing = moe_mod._routing
+
+    def routing(x, p, c):
+        probs = torch.softmax(x.float() @ p["router"], dim=-1)
+        if log["on"] == first:
+            log[first].append(probs.reshape(-1, E))
+            return orig_routing(x, p, c)
+        ref = log[first][log["calls"]]
+        log["calls"] += 1
+        idx = moe_mod._top_k(ref, k)[1].reshape(*probs.shape[:-1], k)
+        gates = probs.gather(-1, idx)
+        gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
+        return (torch.zeros_like(probs).scatter(-1, idx, gates), gates, idx,
+                torch.zeros((), device=x.device))
+
+    lg, feed, gathers = {}, [], None
+    moe_mod._routing = routing
+    try:
+        for name, mesh in tiers.items():
+            log.update(on=name, calls=0)
+            b = PagedBackend(model, params, max_slots=len(prompts),
+                             max_len=2048, page_size=64, use_kernel=True,
+                             mesh=mesh, device=dev)
+            out = []
+            for sid, pr in enumerate(prompts):
+                task = b.start_prefill(f"s{sid}", pr)
+                x = None
+                while x is None:
+                    x, _ = b.prefill_chunk(task, 512)
+                out.append(x.float().cpu().numpy()[None])
+            tok = np.array([int(x.argmax()) for x in out])
+            for j in range(steps):
+                if name == first:
+                    feed.append(tok)
+                sharding.reset_gather_stats()
+                out.append(b.decode_batch(feed[j]))
+                if j == 0:
+                    gathers = dict(sharding.GATHER_STATS)
+                tok = out[-1].argmax(-1)
+            lg[name] = out
+            del b
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        moe_mod._routing = orig_routing
+    return lg, gathers
+
+
+def fsdp_first_difference(torch, stack, params, dev):
+    """Where a (2, 2) stack first departs from the (1, 2) arithmetic:
+    layer 0's gathered weights of each model shard against the (1, 2)
+    shard's (the whole weight's chunk), then each weight's product with
+    the same activations. Returns a list of findings (empty: none)."""
+    from repro_torch.distributed.sharding import _model_dim
+    sh = stack.shard
+    whole = {k: v[0] for k, v in _flat(params["layers"]).items()}
+    specs = _flat(sh.rules.param_specs(params)["layers"])
+    g = torch.Generator(device=dev).manual_seed(5)
+    found = []
+    for s in range(stack.n):
+        got = _flat(stack._lp(s, 0))
+        for path, w in got.items():
+            md = _model_dim(specs[path])
+            ref = whole[path] if md is None else \
+                whole[path].chunk(stack.n, dim=md - 1)[s].contiguous()
+            if not torch.equal(w, ref):
+                found.append(f"shard {s} {path}: gathered weight differs")
+                continue
+            if w.dim() >= 2:
+                x = torch.randn((8, w.shape[-2]), generator=g, device=dev,
+                                dtype=w.dtype)
+                if not torch.equal(x @ w, x @ ref):
+                    found.append(f"shard {s} {path}: equal weights, the "
+                                 f"products differ")
+    return found
+
+
+def _flat(tree, path=""):
+    """{"a/b": leaf} of a nested dict."""
+    if isinstance(tree, dict):
+        return {k: v for n, t in tree.items()
+                for k, v in _flat(t, f"{path}/{n}" if path else n).items()}
+    return {path: tree}
+
+
+def run_tp_fsdp(torch, dev):
+    """8e: dbrx-132b at full width, FSDP_LAYERS layers, served on a (1, 2)
+    mesh and then on a (2, 2) mesh of the one card, where the serving
+    rule's own threshold splits its weights over ``data`` too (FSDP at
+    serve): the same tokens, bit-identical teacher-forced logits, (1, 2)
+    against one device, each position's weight bytes against the specs,
+    the gathers a forward, decode steps and peak memory."""
+    import numpy as np
+    from repro_torch.configs import REGISTRY
+    from repro_torch.distributed import sharding
+    from repro_torch.distributed.sharding import ServeSharding
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import make_model
+    from repro_torch.serving import backends
+    from repro_torch.serving.backends import PagedBackend
+    from repro_torch.serving.engine import (ContinuousBatchingEngine,
+                                            EngineConfig)
+
+    full = REGISTRY["dbrx-132b"]
+    cfg = dataclasses.replace(full, num_layers=FSDP_LAYERS)
+    L, V, M = cfg.num_layers, cfg.vocab_size, 2
+    pbytes = sharding.param_bytes(cfg)
+    print(f"phase 8e: {cfg.name} at full width, {L} of {full.num_layers} "
+          f"layers (d={cfg.d_model} H={cfg.num_heads}/{cfg.num_kv_heads} "
+          f"{cfg.moe.num_experts} experts top-{cfg.moe.top_k} "
+          f"ff={cfg.d_ff} V={V}): {pbytes / 1e9:.2f} GB of bf16 weights, "
+          f"{pbytes / M / 2 ** 30:.2f} GiB a model shard at M={M} against "
+          f"the serving rule's {sharding.SERVE_FSDP_BYTES / 2 ** 30:.0f} "
+          f"GiB")
+    check(sharding.needs_serve_fsdp(cfg, M), "8e: the serving rule does not "
+          "split the weights over data at M = 2")
+    t_phase = time.perf_counter()
+    model = make_model(cfg)
+    params = model.init_params(torch.Generator(device=dev).manual_seed(0))
+    meshes = {"1x2": make_local_mesh(1, M, devices=[dev] * M),
+              "2x2": make_local_mesh(2, M, devices=[dev] * 2 * M)}
+    ecfg = dict(FAMILY_ENGINE, max_slots=4, max_seq_len=2048)
+    out = {"param_bytes": pbytes}
+    streams = {}
+    for name, mesh in meshes.items():
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        eng = ContinuousBatchingEngine(model, params, EngineConfig(
+            **dict(ecfg, mesh=mesh)), device=dev)
+        be = eng.backend
+        built = torch.cuda.memory_allocated() - base
+        sh = be.shard
+        have = position_bytes(be.stack.params)
+        want, gathered, calls = spec_bytes(sh, params)
+        print(f"  {name}: weight bytes by position (d, m) "
+              + ", ".join(f"{p}: {have.get(p, 0) / 1e9:.3f} GB (specs "
+                          f"{want[p] / 1e9:.3f})" for p in sorted(want))
+              + f"; the engine's build allocated {built / 1e9:.2f} GB; data "
+              f"split {be.stack._fsdp}")
+        check(have == want, f"8e {name}: weight bytes by position differ "
+              f"from the specs'")
+        check(be.stack._fsdp == (name == "2x2"), f"8e {name}: the data "
+              f"split is {be.stack._fsdp}")
+        check(be._kernel_sharded, f"8e {name}: decode kernels not per shard")
+        steps, orig = count_fused_steps(PagedBackend)
+        backends.reset_transfer_stats()
+        sharding.reset_gather_stats()
+        _build.reset_launches()
+        try:
+            outs, t_pf, t_dec, n_dec = drive(torch, eng, make_requests(
+                len(FSDP_LENS), 0, FSDP_LENS, FSDP_TOKENS, V, seed=8,
+                model=cfg.name))
+        finally:
+            PagedBackend._fused_kernel_impl = orig
+        launches = dict(_build.LAUNCHES)
+        drive_gathers = dict(sharding.GATHER_STATS)
+        check_outputs(f"8e {name}", outs, len(FSDP_LENS), FSDP_TOKENS, V)
+        check(backends.TRANSFER_STATS["decode_logits_transfers"] == 0,
+              f"8e {name}: the fused path moved logits to the host")
+        tp_launch_check(f"8e {name}", launches, {
+            "fused_decode_attention": sum(steps) * L * M})
+        streams[name] = ({o.request_id: o.output_tokens for o in outs},
+                         dict(eng.stats))
+        peak = torch.cuda.max_memory_allocated()
+        print(f"  {name}: {len(FSDP_LENS)} requests, launches {launches} "
+              f"({sum(steps)} fused decode steps x {L} layers x {M} "
+              f"shards); gathers {drive_gathers['calls']} "
+              f"({drive_gathers['bytes'] / 1e9:.2f} GB); prefill "
+              f"{eng.stats['prefill_tokens'] / t_pf:.1f} tokens/s; peak "
+              f"memory {peak / 2 ** 30:.2f} GiB (the unsharded weights "
+              f"kept for the comparison included)")
+        del eng, be
+        gc.collect()
+        torch.cuda.empty_cache()
+        tp = profile_decode(torch, ContinuousBatchingEngine(
+            model, params, EngineConfig(**dict(ecfg, mesh=mesh)),
+            device=dev), make_requests(len(FSDP_LENS), 0, FSDP_LENS, 64, V,
+                                       seed=3, model=cfg.name), steps=1)
+        out[name] = {"launches": launches, "fused_steps": sum(steps),
+                     "position_bytes": {f"{d},{m}": b
+                                        for (d, m), b in have.items()},
+                     "build_bytes": built, "peak_mem_gib": peak / 2 ** 30,
+                     "drive_gathers": drive_gathers,
+                     "predicted_gather_calls": calls,
+                     "predicted_gather_bytes": gathered,
+                     "decode_step_wall_ms": tp["decode_step_wall_ms"],
+                     "decode_step_device_ms": tp["decode_step_device_ms"],
+                     "device_idle_share": tp["device_idle_share"]}
+
+    def ms(x):
+        return "not measured" if x is None else f"{x:.3f}"
+    a, b = out["1x2"], out["2x2"]
+    ratio = (b["decode_step_device_ms"] / a["decode_step_device_ms"]
+             if a["decode_step_device_ms"] and b["decode_step_device_ms"]
+             else None)
+    print(f"  decode step (4 sequences, K=8): 1x2 "
+          f"{a['decode_step_wall_ms']:.3f} ms host clock / "
+          f"{ms(a['decode_step_device_ms'])} ms device; 2x2 "
+          f"{b['decode_step_wall_ms']:.3f} / {ms(b['decode_step_device_ms'])}"
+          f" ms; device ratio {ms(ratio)} (predicted 2 to 3.5)")
+    check(streams["1x2"] == streams["2x2"], "8e: the (2, 2) engine's "
+          "tokens or stats differ from the (1, 2) engine's")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- teacher-forced: one device, (1, 2), (2, 2), each routed by the
+    # 1-device decisions --
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(2, V, size=n).tolist() for n in (700, 530)]
+    lg, gathers = fsdp_tiers(torch, model, params, dev, {
+        "one": None, **meshes}, prompts, 8)
+    worst = max(float(np.abs(m - o).max() / max(np.abs(o).max(), 1e-6))
+                for m, o in zip(lg["1x2"], lg["one"]))
+    same = all(np.array_equal(x, y) for x, y in zip(lg["2x2"], lg["1x2"]))
+    first_diff = []
+    if not same:
+        worst22 = max(float(np.abs(m - o).max() / max(np.abs(o).max(), 1e-6))
+                      for m, o in zip(lg["2x2"], lg["1x2"]))
+        be = PagedBackend(model, params, max_slots=1, max_len=128,
+                          page_size=64, use_kernel=True, mesh=meshes["2x2"],
+                          device=dev)
+        first_diff = fsdp_first_difference(torch, be.stack, params, dev)
+        del be
+        print(f"  teacher-forced: (2, 2) logits NOT bit-identical to (1, 2): "
+              f"rel_err {worst22:.3e}; first difference: "
+              f"{first_diff or 'none in layer 0 weights or products'}")
+        check(worst22 <= LOGITS_TOL, "8e: (2, 2) logits disagree with (1, 2)")
+    want_calls = out["2x2"]["predicted_gather_calls"]
+    want_bytes = out["2x2"]["predicted_gather_bytes"]
+    print(f"  teacher-forced (700 / 530-token prompts, 8 decode steps, the "
+          f"routing of the 1-device run): (2, 2) vs (1, 2) logits "
+          f"{'bit-identical' if same else 'differ'}; (1, 2) vs 1 device "
+          f"rel_err {worst:.3e} (tolerance {LOGITS_TOL}); a (2, 2) decode "
+          f"forward gathers {gathers['calls']} times, "
+          f"{gathers['bytes'] / 1e9:.3f} GB (specs: {want_calls}, "
+          f"{want_bytes / 1e9:.3f} GB)")
+    check(worst <= LOGITS_TOL, "8e: (1, 2) logits disagree with 1 device")
+    check(gathers == {"calls": want_calls, "bytes": want_bytes},
+          "8e: the gathers of a forward differ from the specs'")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    out.update(bit_identical=same, first_difference=first_diff,
+               teacher_forced_rel_err=worst, decode_device_ratio=ratio,
+               forward_gathers=gathers,
+               launches={"fused_decode_attention": sum(
+                   out[n]["launches"]["fused_decode_attention"]
+                   for n in meshes)},
+               phase_s=time.perf_counter() - t_phase)
+    print(f"  phase 8e in {out['phase_s']:.1f} s")
+    return out
+
+
 def run_tensor_parallel(torch, dev, one_device, one_device_hybrid):
-    """Phase 8: the four parts, each after the previous one's weights are
+    """Phase 8: the five parts, each after the previous one's weights are
     freed."""
     out = {}
     for name, run in (("llama", lambda: run_tp_llama(torch, dev, one_device)),
                       ("granite", lambda: run_tp_granite(torch, dev)),
                       ("moe", lambda: run_tp_moe(torch, dev)),
                       ("hybrid", lambda: run_tp_hybrid(torch, dev,
-                                                       one_device_hybrid))):
+                                                       one_device_hybrid)),
+                      ("fsdp", lambda: run_tp_fsdp(torch, dev))):
         gc.collect()
         torch.cuda.empty_cache()
         out[name] = run()
@@ -4174,11 +4511,13 @@ def main() -> int:
     # paged kernels from its fused main path, ssd and flash_attention from
     # phase 4's main path
     # per-shard launches under a mesh: phase 8a's fused path and per-step
-    # path, phase 8d's zamba2 main path (ssd, flash_attention); the paged
-    # prefill kernel runs under no mesh
+    # path, phase 8e's two dbrx-132b engines' fused paths, phase 8d's
+    # zamba2 main path (ssd, flash_attention); the paged prefill kernel
+    # runs under no mesh
     tp_launches = {
         "fused_decode_attention":
-            tp_metrics["llama"]["launches_fused"]["fused_decode_attention"],
+            tp_metrics["llama"]["launches_fused"]["fused_decode_attention"]
+            + tp_metrics["fsdp"]["launches"]["fused_decode_attention"],
         "paged_attention":
             tp_metrics["llama"]["launches_per_step"]["paged_attention"],
         "ssd": tp_metrics["hybrid"]["launches"]["ssd"],

@@ -131,8 +131,9 @@ def load_checkpoint(path: str, target=None, device=None, shardings=None):
     to ``device`` (default: the CUDA device, RuntimeError without a
     card). ``shardings`` (a ``ServeSharding`` of the current mesh, with a
     ``target``) places the restored parameter tree on the mesh: the tree
-    comes back as ``shardings.shard_params(tree)``, a list of per-shard
-    trees, each on its shard's device."""
+    comes back as ``shardings.shard_params(tree)``, a list of per-model-
+    shard trees, each on its shard's device, a leaf split over ``data``
+    as its slices on their replicas' devices."""
     if shardings is not None and target is None:
         raise ValueError("shardings= places a parameter tree: pass the "
                          "target tree too")

@@ -17,14 +17,18 @@ axis names, or None (not split), where the reference writes a
 
 Every rule degrades to None when a dim is not divisible by the axis size.
 
-:class:`ServeSharding` places a serving engine's tensors on a ``(1, N)``
-mesh. One process drives every shard (the reference has one controller
-too): each shard is a parameter tree and a KV cache on its own
-``torch.device``, and the collectives are explicit calls on tensors --
-:meth:`ServeSharding.all_reduce` sums partials in shard order on the lead
-device, :meth:`ServeSharding.all_gather` concatenates on it. Shards may
-share one device (several shards on one card, or on the CPU): they then
-run one after another on its stream.
+:class:`ServeSharding` places a serving engine's tensors on a
+``(data=D, model=M)`` mesh. One process drives every shard (the reference
+has one controller too): each model shard is a parameter tree and a KV
+cache on its own ``torch.device``, and the collectives are explicit calls
+on tensors -- :meth:`ServeSharding.all_reduce` sums partials in shard order
+on the lead device, :meth:`ServeSharding.all_gather` concatenates on it.
+Shards may share one device (several shards on one card, or on the CPU):
+they then run one after another on its stream. Where the serving rule
+splits the weights over ``data`` as well (``needs_serve_fsdp``, FSDP at
+serve), such a weight is held as :class:`DataSlices` across the data
+replicas and :meth:`ServeSharding.gather` puts it back together, one layer
+at a time, where its model shard computes.
 """
 from __future__ import annotations
 
@@ -41,6 +45,15 @@ _REPLICATED_NAMES = {
 }
 
 SERVE_FSDP_BYTES = 8 << 30      # params/chip above this forces FSDP at serve
+
+# ServeSharding.gather: the data-split weights put back together, and the
+# bytes of the gathered tensors
+GATHER_STATS = {"calls": 0, "bytes": 0}
+
+
+def reset_gather_stats() -> None:
+    GATHER_STATS["calls"] = 0
+    GATHER_STATS["bytes"] = 0
 
 
 def dp_axes(mesh):
@@ -166,34 +179,72 @@ class ShardingRules:
         return _walk(cache_shapes, lambda p, x: self._cache_spec(p, x.shape))
 
 
-def _model_dim(spec):
-    """The dimension a spec splits over "model", or None."""
+def _axis_dim(spec, axis):
+    """The dimension a spec splits over ``axis``, or None."""
     for d, a in enumerate(spec):
-        if a == "model" or (isinstance(a, tuple) and "model" in a):
+        if a == axis or (isinstance(a, tuple) and axis in a):
             return d
     return None
 
 
+def _model_dim(spec):
+    """The dimension a spec splits over "model", or None."""
+    return _axis_dim(spec, "model")
+
+
+class DataSlices:
+    """A model shard's weight split over the mesh's ``data`` axis too: its
+    D slices along ``dim``, slice d a contiguous tensor of its own on
+    device (d, m) of the shard's model position m, at the reference's
+    shard shape. ``x[i]`` takes index i of every slice's leading dim (a
+    stacked leaf's layer view, as ``transformer.layer_params`` takes it);
+    nothing computes with the slices: :meth:`ServeSharding.gather` joins
+    them first."""
+    __slots__ = ("parts", "dim")
+
+    def __init__(self, parts, dim: int):
+        self.parts = list(parts)
+        self.dim = dim
+
+    def __getitem__(self, i: int):
+        return DataSlices([p[i] for p in self.parts], self.dim - 1)
+
+
+def _concat(leaf: DataSlices, device):
+    """A :class:`DataSlices` joined on ``device``: an exact copy of the
+    model shard's tensor."""
+    return torch.cat([p.to(device) for p in leaf.parts], dim=leaf.dim)
+
+
 class ServeSharding:
-    """Serving-time placement on a ``(data=1, model=N)`` mesh.
+    """Serving-time placement on a ``(data=D, model=M)`` mesh (a ``pod``
+    axis may lead).
 
     * **params** -- split by :class:`ShardingRules` (``train=False``):
       attention q/k/v and MLP columns, wo/w2 rows, MoE expert stacks over
       the experts, embedding and head over the vocabulary; the rest
-      replicated. :meth:`shard_params` gives one tree per shard, each split
-      leaf a contiguous tensor of its own.
+      replicated. :meth:`shard_params` gives one tree per model shard, each
+      split leaf a contiguous tensor of its own. Where the rule also splits
+      a weight over ``data`` (FSDP at serve: ``needs_serve_fsdp`` of the
+      config at M), that leaf is a :class:`DataSlices` of its D slices,
+      slice d on device (d, m), and :meth:`gather` joins them on the model
+      shard's compute device (0, m) before use. A ``pod`` axis, and a
+      ``data`` axis the rule splits nothing over, only replicate in the
+      reference: one controller holds such replicas once, on replica 0.
     * **KV** -- paged pools ``(L, NP, page, KH, hd)`` and slot caches
-      ``(L, B, KH, S, hd)`` split the kv-head axis when N divides it
+      ``(L, B, KH, S, hd)`` split the kv-head axis when M divides it
       (``kv_split == "heads"``), else head_dim (``"head_dim"``), else every
       shard holds the whole cache (``None``). Each shard's pool is a
       tensor of its own, never a view of a whole pool. Block tables,
       lengths and refcounts stay on the host, one copy for every shard.
       The ssm and conv states of the ssm and hybrid families are
       replicated, as in the reference: every shard holds a whole copy of
-      its own and scans it itself.
+      its own and scans it itself. Caches and states live on replica 0's
+      devices (0, m), whatever D is (the reference replicates them over
+      ``data``).
     * **the sampler** -- decode state and uploads live on the lead device
-      (the first shard's), unsharded; it samples from the full logits, so
-      only token ids reach the host.
+      (0, 0), unsharded; it samples from the full logits, so only token
+      ids reach the host.
     """
 
     def __init__(self, mesh, cfg: ModelConfig):
@@ -201,15 +252,22 @@ class ServeSharding:
             raise ValueError(
                 f"serving mesh needs a 'model' axis, got {mesh.axis_names}; "
                 f"build one with launch.mesh.make_local_mesh(data, model)")
-        wide = {a: n for a, n in mesh.shape.items() if a != "model" and n > 1}
-        if wide:
-            raise NotImplementedError(
-                f"serving mesh axes {wide} above 1: only the model axis is "
-                f"ported (ROADMAP Queue 1 item 11b)")
         self.mesh = mesh
         self.cfg = cfg
         self.rules = ShardingRules(mesh, cfg, train=False)
-        self.devices = list(mesh.placed_devices())
+        placed = mesh.placed_devices()
+        # positions are row-major: (d, m) of pod 0 sits at the sum of each
+        # coordinate times its axis's stride
+        stride, n = {}, 1
+        for a, size in reversed(list(zip(mesh.axis_names, mesh.axis_sizes))):
+            stride[a], n = n, n * size
+        self.data_shards = int(mesh.shape.get("data", 1))
+        # replicas[d][m]: the device of position (d, m); row 0 computes
+        self.replicas = [[placed[d * stride.get("data", 0)
+                                 + m * stride["model"]]
+                          for m in range(self.model_shards)]
+                         for d in range(self.data_shards)]
+        self.devices = self.replicas[0]
         self.lead = self.devices[0]
         self._param_shapes = None       # the last shard_params' leaf shapes
 
@@ -235,22 +293,45 @@ class ServeSharding:
 
     def _join(self, parts, spec):
         """Inverse of :meth:`_split`, on the lead device."""
+        parts = [_concat(p, self.lead) if isinstance(p, DataSlices) else p
+                 for p in parts]
         d = _model_dim(spec)
         if d is None:
             return parts[0].to(self.lead)
         return torch.cat([p.to(self.lead) for p in parts], dim=d)
 
+    def _data_dim(self, spec):
+        """The dimension ``spec`` splits over a data axis above 1, or
+        None."""
+        return None if self.data_shards == 1 else _axis_dim(spec, "data")
+
+    def _place(self, x, spec):
+        """One leaf per model shard: :meth:`_split`'s, or where ``spec``
+        splits over ``data`` too, the D slices of each model chunk, slice d
+        copied onto device (d, m)."""
+        dd = self._data_dim(spec)
+        if dd is None:
+            return self._split(x, spec, own=False)
+        md = _model_dim(spec)
+        chunks = [x] * self.model_shards if md is None \
+            else x.chunk(self.model_shards, dim=md)
+        return [DataSlices(
+            [torch.empty(c.shape, dtype=c.dtype, device=dev).copy_(c)
+             for c, dev in zip(chunk.chunk(self.data_shards, dim=dd),
+                               (r[m] for r in self.replicas))], dd)
+            for m, chunk in enumerate(chunks)]
+
     # -- params ----------------------------------------------------------------
     def shard_params(self, params):
-        """The per-shard parameter trees (a list of N nested dicts), split
-        by the ``train=False`` specs. Replicated leaves are shared where a
-        shard's device is the leaf's own."""
+        """The per-model-shard parameter trees (a list of M nested dicts),
+        split by the ``train=False`` specs; a leaf the specs split over
+        ``data`` as well is a :class:`DataSlices`. Replicated leaves are
+        shared where a shard's device is the leaf's own."""
         self._param_shapes = _walk(params, lambda p, x: tuple(x.shape))
         trees = [dict() for _ in range(self.model_shards)]
 
         def place(path, x):
-            parts = self._split(x, self.rules._param_spec(path, x.shape),
-                                own=False)
+            parts = self._place(x, self.rules._param_spec(path, x.shape))
             for tree, part in zip(trees, parts):
                 node = tree
                 for k in path[:-1]:
@@ -269,6 +350,21 @@ class ServeSharding:
                 parts = [part[k] for part in parts]
             return self._join(parts, self.rules._param_spec(path, shape))
         return _walk(self._param_shapes, join)
+
+    def gather(self, leaf, s: int):
+        """Model shard ``s``'s leaf whole on its compute device (0, s): a
+        :class:`DataSlices` concatenated along its split dim (counted in
+        ``GATHER_STATS``), any other leaf as it is."""
+        if not isinstance(leaf, DataSlices):
+            return leaf
+        out = _concat(leaf, self.devices[s])
+        GATHER_STATS["calls"] += 1
+        GATHER_STATS["bytes"] += out.numel() * out.element_size()
+        return out
+
+    def gather_tree(self, tree, s: int):
+        """:meth:`gather` of every leaf of a nested dict."""
+        return _walk(tree, lambda p, x: self.gather(x, s))
 
     # -- KV policy -------------------------------------------------------------
     def _head_axes(self, kh: int, hd: int):
@@ -357,4 +453,3 @@ class ServeSharding:
         if len(parts) == 1:
             return parts[0]
         return torch.cat([p.to(self.lead) for p in parts], dim=dim)
-

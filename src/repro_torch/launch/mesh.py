@@ -3,8 +3,9 @@
 A :class:`Mesh` names its axes, their sizes and the ``torch.device`` of each
 position (row-major over the axes). The serving engine takes a
 ``(data, model)`` mesh through ``EngineConfig.mesh`` and splits the model
-over the ``model`` axis (``distributed/sharding.py``); one process drives
-every shard. Building a mesh touches no device: it only names them.
+over the ``model`` axis, and where the serving rule says so its weights over
+``data`` too (``distributed/sharding.py``); one process drives every
+shard. Building a mesh touches no device: it only names them.
 """
 from __future__ import annotations
 

@@ -218,7 +218,8 @@ def mamba_layer_sharded(x, ps, cfg, gather, reduce, *, states=None,
     by rows, the rest of the mixer's weights and its state replicated.
 
     x: (B, S, D) on the lead device; ``ps``: each shard's mixer weights on
-    its device (an unsplit weight is whole on every shard); ``states``:
+    its device (an unsplit weight is whole on every shard; data-split
+    slices are gathered by the caller); ``states``:
     each shard's own copy of the decode state (None: prefill);
     ``gather(parts)`` concatenates the shards' last dims on the lead
     device, ``reduce(partials)`` sums them there.

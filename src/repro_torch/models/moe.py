@@ -89,8 +89,9 @@ def _dense_experts(x, p, gate_full):
 
 def moe_ffn_sharded(x, ps, cfg, reduce):
     """``moe_ffn`` in "dense" mode with the experts split over shards
-    (expert parallelism): ``ps[s]`` holds shard s's E/N experts (w1/w3/w2)
-    and the replicated router. The router runs once, on the lead device's
+    (expert parallelism): ``ps[s]`` holds shard s's E/N experts (w1/w3/w2,
+    whole: a ``ServeStack`` gathers any data-split slices first) and the
+    replicated router. The router runs once, on the lead device's
     x, so every shard sees the same top-k and tie order; each shard
     computes its own experts on every token, gated, and ``reduce`` sums the
     shards' float32 outputs on the lead device. Returns (B, S, D) in x's

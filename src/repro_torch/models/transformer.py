@@ -22,6 +22,7 @@ import dataclasses
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed.sharding import DataSlices
 from repro_torch.models.layers import (attention_layer,
                                        decode_attention_appended, dense_init,
                                        head_dim_split_attention,
@@ -30,6 +31,7 @@ from repro_torch.models.layers import (attention_layer,
                                        split_heads_rope)
 from repro_torch.models.mamba2 import mamba_layer_sharded
 from repro_torch.models.moe import init_moe, moe_ffn, moe_ffn_sharded
+from repro_torch.tree import tree_leaves
 
 
 def _dtype(cfg) -> torch.dtype:
@@ -249,6 +251,16 @@ class ServeStack:
     partial scores: ``layers.head_dim_split_attention``); with None every
     shard gets the whole q, k and v. On one device every op is the one the
     unsharded model runs.
+
+    On a mesh whose ``data`` axis splits weights too (FSDP at serve, see
+    ``ServeSharding``), a layer's data-split weights are gathered onto each
+    model shard's device just before the layer's first use, for every
+    shard at once, and dropped when the next layer (or ``"shared"``, or
+    the embedding or head) is gathered: the peak is the slices plus one
+    layer's gathered weights. The embedding and head gather theirs on each
+    call. Every op then runs on exactly the tensors a ``(1, M)`` mesh
+    holds, so no product contracts over a data-split dimension and the
+    arithmetic is the ``(1, M)`` arithmetic, bit for bit.
     """
 
     def __init__(self, params, cfg, shard=None):
@@ -265,6 +277,10 @@ class ServeStack:
         self.n = len(self.params)
         self.layers = [[layer_params(p, i) for i in range(cfg.num_layers)]
                        for p in self.params]
+        self._fsdp = shard is not None and any(
+            isinstance(x, DataSlices) for x in tree_leaves(self.params[0]))
+        # the gathered weights of the layer in use: (key, one tree a shard)
+        self._held = (None, None)
         whole = {"embed": cfg.vocab_size, "wq": cfg.q_dim,
                  "wk": cfg.kv_dim, "ffn": cfg.moe.num_experts if cfg.moe
                  else cfg.d_ff}
@@ -277,9 +293,25 @@ class ServeStack:
 
     def _lp(self, s: int, i):
         """Shard ``s``'s parameters of layer ``i`` (an index, or
-        ``"shared"``)."""
-        return self.params[s]["shared"] if i == "shared" \
-            else self.layers[s][i]
+        ``"shared"``), its data-split weights gathered."""
+        if not self._fsdp:
+            return self.params[s]["shared"] if i == "shared" \
+                else self.layers[s][i]
+        if self._held[0] != i:
+            self._held = (None, None)       # the previous layer's go first
+            self._held = (i, [
+                self.shard.gather_tree(
+                    p["shared"] if i == "shared" else lay[i], t)
+                for t, (p, lay) in enumerate(zip(self.params,
+                                                 self.layers))])
+        return self._held[1][s]
+
+    def _top(self, name: str):
+        """A top-level weight (``embed`` or ``lm_head``) of every shard,
+        gathered; whatever layer was held is dropped first."""
+        self._held = (None, None)
+        return [self.shard.gather(p[name], s) if self._fsdp else p[name]
+                for s, p in enumerate(self.params)]
 
     def reduce(self, partials):
         """Sum of per-shard partials, on the lead device."""
@@ -299,11 +331,11 @@ class ServeStack:
     # -- embedding and head ------------------------------------------------------
     def embed(self, tokens):
         """(B, S) token ids on the lead device -> (B, S, D)."""
+        es = self._top("embed")
         if not self._split["embed"]:
-            return self.params[0]["embed"][tokens.long()]
+            return es[0][tokens.long()]
         parts = []
-        for p, dev in zip(self.params, self.devices):
-            e = p["embed"]
+        for e, dev in zip(es, self.devices):
             lo = len(parts) * e.shape[0]
             t = tokens.to(dev).long() - lo
             ok = ((t >= 0) & (t < e.shape[0]))[..., None]
@@ -314,15 +346,13 @@ class ServeStack:
         """Hidden states (..., D) on the lead device -> the final norm, then
         float32 logits (..., V) on it."""
         h = rms_norm(h, self.params[0]["final_norm"], self.cfg.norm_eps)
-
-        def w(p):
-            head = p.get("lm_head")
-            return p["embed"].T if head is None else head
+        ws = self._top("lm_head") if "lm_head" in self.params[0] \
+            else [e.T for e in self._top("embed")]
         if not self._split["embed"]:
-            return (h @ w(self.params[0])).float()
+            return (h @ ws[0]).float()
         return self.shard.all_gather(
-            [(h.to(dev) @ w(p)).float()
-             for p, dev in zip(self.params, self.devices)], dim=-1)
+            [(h.to(dev) @ w).float() for w, dev in zip(ws, self.devices)],
+            dim=-1)
 
     # -- attention projections -----------------------------------------------------
     def _col(self, x, i, w, b):
@@ -449,5 +479,5 @@ class ServeStack:
         Returns (out (B, S, D) on the lead device, each shard's new
         state)."""
         return mamba_layer_sharded(
-            x, [lay[i]["mamba"] for lay in self.layers], self.cfg,
+            x, [self._lp(s, i)["mamba"] for s in range(self.n)], self.cfg,
             self.gather, self.reduce, states=states, use_kernel=use_kernel)

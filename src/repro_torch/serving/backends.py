@@ -58,12 +58,17 @@ run plain PyTorch in both tiers, as the reference's do.
 The paged backend also swaps a preempted sequence's KV to host memory and
 back (``swap_out`` / ``swap_in``).
 
-Tensor parallelism (``mesh=``, a ``(1, N)`` mesh from
+Mesh serving (``mesh=``, a ``(data=D, model=N)`` mesh from
 ``launch/mesh.py``): :class:`~repro_torch.distributed.sharding.ServeSharding`
-splits the parameters and the KV cache over the N shards and
+splits the parameters and the KV cache over the N model shards and
 :class:`~repro_torch.models.transformer.ServeStack` runs every layer loop
 over them, one shard after another; the residual stream, the sampler and
-its state stay on the lead device, and only token ids reach the host.
+its state stay on the lead device (0, 0), and only token ids reach the
+host. With D > 1 the pools, slot caches and states stay on replica 0's
+devices (0, m), as at D = 1; where the serving rule splits weights over
+``data`` too (FSDP at serve, ``needs_serve_fsdp``), each layer's slices are
+gathered onto (0, m) just before the layer runs, so every op, kernel
+dispatch included, is the ``(1, N)`` one on the same tensors.
 Kernel dispatch is the reference's: the two paged decode kernels run once
 per shard when N divides the kv heads (``_kernel_sharded``); otherwise the
 cache splits over head_dim and the plain path serves, summing the shards'

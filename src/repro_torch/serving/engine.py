@@ -46,13 +46,13 @@ contiguous cache row per slot) and ``backend="paged"`` (the attention
 families dense, moe and vlm; prefix cache, page pool). The audio family
 is an encoder: it is served by ``serving/embedding.py``, not here.
 
-Tensor-parallel serving (``mesh``, a ``(1, N)`` mesh from
+Mesh serving (``mesh``, a ``(data, model)`` mesh from
 ``launch/mesh.py``): both backends (and a speculating engine's draft
-backend) split the model over the mesh's ``model`` axis; see
+backend) split the model over the mesh's ``model`` axis, and where the
+serving rule says so (a model too big for its model shards, as dbrx-132b)
+its weights over ``data`` as well, gathered a layer at a time; see
 ``serving/backends.py``. Every decoder family serves on the slot backend;
-the paged backend takes the attention families, as without a mesh. A
-mesh axis other than ``model`` above 1 raises ``NotImplementedError``
-(ROADMAP Queue 1 item 11b).
+the paged backend takes the attention families, as without a mesh.
 """
 from __future__ import annotations
 
@@ -86,8 +86,9 @@ class EngineConfig:
     page_size: int = 64
     num_pages: int | None = None
     use_kernel: bool = False
-    # tensor-parallel serving: a (1, N) launch.mesh.Mesh (make_local_mesh);
-    # params, KV and decode kernels split over its "model" axis
+    # mesh serving: a (data, model) launch.mesh.Mesh (make_local_mesh);
+    # params, KV and decode kernels split over its "model" axis, weights
+    # over "data" too where the serving rule splits them (FSDP at serve)
     mesh: object | None = None
     max_prefills_per_step: int = 4
     # prompt tokens computed per engine step across all in-flight prefills;

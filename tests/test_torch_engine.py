@@ -177,22 +177,16 @@ def test_engine_token_identical_to_jax(variant, llama, port_llama,
 
 @pytest.mark.parametrize("case", ["mesh", "mesh-ssm"])
 def test_unported_engine_settings_name_their_roadmap_item(port_llama, case):
-    """The tensor-parallel mesh is ported: a mesh engine serves, its
-    tokens those of the 1-device engine, for an attention family
-    (``mesh``) and for the ssm family (``mesh-ssm``). What stays unported,
-    a mesh axis other than ``model`` above 1, raises naming its ROADMAP
-    item."""
+    """The mesh settings are ported: a mesh engine serves, its tokens
+    those of the 1-device engine, on a (1, 4) mesh for an attention family
+    (``mesh``) and on a (2, 2) (data, model) mesh for the ssm family
+    (``mesh-ssm``). No engine setting is left unported."""
     from repro_torch.launch.mesh import make_local_mesh
     mesh = make_local_mesh(1, 4, devices=["cpu"] * 4)
     if case == "mesh-ssm":
         tmodel = make_model(reduced(REGISTRY["mamba2-130m"]))
         tparams = tmodel.init_params(torch.Generator().manual_seed(0))
-        with pytest.raises(NotImplementedError, match="ROADMAP.*item 11b"):
-            ContinuousBatchingEngine(
-                tmodel, tparams,
-                EngineConfig(mesh=make_local_mesh(2, 2,
-                                                  devices=["cpu"] * 4)),
-                device="cpu")
+        mesh = make_local_mesh(2, 2, devices=["cpu"] * 4)
     else:
         tmodel, tparams = port_llama
     outs = []

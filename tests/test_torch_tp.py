@@ -9,7 +9,7 @@ configs:
 
 * ``make_local_mesh`` validation and the shape-only production meshes;
 * ``ShardingRules`` specs equal to the reference's for every registry
-  config, train and serve, on (16, 16), (2, 16, 16) and (1, 4);
+  config, train and serve, on (16, 16), (2, 16, 16), (1, 4) and (2, 2);
 * ``ServeSharding`` placement: ``gather_params(shard_params(p)) == p``,
   pools and slot caches split and joined, the vocab-parallel embedding at
   every shard edge;
@@ -28,8 +28,9 @@ configs:
   ``mamba_layer`` (prefill output and final state, one decode step, 1e-5
   in float32), the engines against both 1-device engines (the same token
   rules), the replicated ssm/conv states and split k/v after a run, and
-  the kernel wrappers called once per shard; a data axis above 1 still
-  raises, naming ROADMAP Queue 1 item 11b.
+  the kernel wrappers called once per shard; both families also serve on
+  a (2, 2) mesh, the (1, 4) engine's greedy tokens (``test_torch_dp.py``
+  holds the data axis itself).
 """
 import copy
 
@@ -140,9 +141,13 @@ def test_production_meshes_are_shape_only():
 
 
 def test_serve_sharding_refuses_wide_data_axes():
-    with pytest.raises(NotImplementedError, match="item 11b"):
-        ServeSharding(make_local_mesh(2, 2, devices=[CPU] * 4),
-                      reduced(REGISTRY[GQA]))
+    """A data axis above 1 is served (placement in ``test_torch_dp.py``):
+    the model shards sit on replica 0. A mesh with no model axis is
+    refused."""
+    sh = ServeSharding(make_local_mesh(2, 2, devices=[CPU] * 4),
+                       reduced(REGISTRY[GQA]))
+    assert sh.model_shards == 2 and sh.data_shards == 2
+    assert sh.devices == [CPU, CPU] and len(sh.replicas) == 2
     with pytest.raises(ValueError, match="'model' axis"):
         ServeSharding(Mesh(("data",), (1,), (CPU,)), reduced(REGISTRY[GQA]))
 
@@ -153,7 +158,8 @@ def test_serve_sharding_refuses_wide_data_axes():
 
 MESHES = {"16x16": make_production_mesh(),
           "2x16x16": make_production_mesh(multi_pod=True),
-          "1x4": Mesh(("data", "model"), (1, 4))}
+          "1x4": Mesh(("data", "model"), (1, 4)),
+          "2x2": Mesh(("data", "model"), (2, 2))}
 _SHAPES = {}
 
 
@@ -604,24 +610,24 @@ def test_ssm_and_hybrid_mesh_engine_matches_one_device(
 
 
 @pytest.mark.parametrize("arch", [SSM, HYBRID])
-def test_ssm_and_hybrid_under_a_mesh_name_item_11b(pair, request_factory,
-                                                   arch):
+def test_ssm_and_hybrid_serve_on_model_and_data_meshes(pair,
+                                                       request_factory,
+                                                       arch):
     """ssm and hybrid models serve under a (1, 4) mesh on the slot backend,
-    the 1-device engine's greedy tokens; the paged backend still takes
-    the attention families only, and a data axis above 1 still raises
-    naming ROADMAP Queue 1 item 11b."""
+    the 1-device engine's greedy tokens, and under a (2, 2) mesh the
+    (1, 4) engine's; the paged backend still takes the attention families
+    only."""
     tmodel, tparams = pair(arch)[3:]
     reqs = _requests(request_factory, tmodel.cfg.vocab_size, GREEDY)[1]
     streams = [_serve(_port_engine(tmodel, tparams, 0, m, backend="slots"),
-                      reqs) for m in (None, _mesh())]
-    assert streams[0] == streams[1] and len(streams[1]) == len(reqs)
+                      reqs) for m in (None, _mesh(),
+                                      make_local_mesh(2, 2,
+                                                      devices=[CPU] * 4))]
+    assert streams[0] == streams[1] == streams[2]
+    assert len(streams[1]) == len(reqs)
     with pytest.raises(ValueError, match="attention families"):
         PagedBackend(tmodel, tparams, max_slots=2, max_len=64,
                      mesh=_mesh(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 11b"):
-        ContinuousBatchingEngine(tmodel, tparams, EngineConfig(
-            backend="slots", mesh=make_local_mesh(2, 2, devices=[CPU] * 4)),
-            device="cpu")
 
 
 @pytest.mark.parametrize("n", [2, 3, 4])
