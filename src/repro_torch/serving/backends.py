@@ -115,6 +115,7 @@ from repro_torch.models.transformer import (ServeStack, _block,
 from repro_torch.serving.kv_cache import OutOfPages, PagedKVCache
 from repro_torch.serving.sampler import (fold_seeds, sample_from_logits,
                                          spec_accept, spec_targets)
+from repro_torch.serving.tracing import RECORDER
 
 ATTENTION_FAMILIES = ("dense", "moe", "vlm")
 
@@ -122,6 +123,8 @@ ATTENTION_FAMILIES = ("dense", "moe", "vlm")
 # The fused decode path's contract is that logits never cross to the host;
 # every logits device->host conversion in this module goes through
 # ``_logits_to_host`` so tests can assert the fused path performs none.
+# Every host<->device copy here is from or to pageable memory and blocks
+# until the stream drains: each is a ``sync`` span (``serving/tracing.py``).
 TRANSFER_STATS = {"decode_logits_transfers": 0, "decode_logits_bytes": 0}
 
 
@@ -131,7 +134,9 @@ def reset_transfer_stats() -> None:
 
 
 def _logits_to_host(x) -> np.ndarray:
-    out = x.detach().float().cpu().numpy()
+    x = x.detach().float()
+    with RECORDER.sync("logits_to_host", h2d=False):
+        out = x.cpu().numpy()
     TRANSFER_STATS["decode_logits_transfers"] += 1
     TRANSFER_STATS["decode_logits_bytes"] += out.nbytes
     return out
@@ -141,12 +146,20 @@ def _upload_state(host_state: dict, device) -> dict:
     """Per-slot decode state to the device (a copy). uint32 seed bases
     travel as int64: torch has no complete uint32 op set."""
     out = {}
-    for k, v in host_state.items():
-        arr = np.array(v)
-        if arr.dtype == np.uint32:
-            arr = arr.astype(np.int64)
-        out[k] = torch.from_numpy(arr).to(device)
+    with RECORDER.sync("upload_state", n=len(host_state)):
+        for k, v in host_state.items():
+            arr = np.array(v)
+            if arr.dtype == np.uint32:
+                arr = arr.astype(np.int64)
+            out[k] = torch.from_numpy(arr).to(device)
     return out
+
+
+def _upload(site: str, x, dtype, device):
+    """Host array -> tensor on ``device``: a ``sync`` span at ``put.<site>``
+    (the backend step that asked)."""
+    with RECORDER.sync("put." + site):
+        return torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
 
 
 def _to_host(out, produced, done):
@@ -155,7 +168,8 @@ def _to_host(out, produced, done):
     done)."""
     n = out.shape[0]
     host = torch.cat([out, produced[None], done[None].to(torch.int32)])
-    host = host.cpu().numpy()
+    with RECORDER.sync("to_host", h2d=False):
+        host = host.cpu().numpy()
     return host[:n], host[n], host[n + 1].astype(bool)
 
 
@@ -315,10 +329,12 @@ class SlotBackend:
         self.free_slots = list(range(max_slots - 1, -1, -1))
         self.slot_of: dict[str, int] = {}
         self._dec_st = None         # device-resident per-slot decode state
+        self._live = 0              # its active slots (the decode.issue attr)
 
-    def _put(self, x, dtype=None):
-        """Host array -> tensor on the backend's device."""
-        return torch.as_tensor(np.asarray(x), dtype=dtype, device=self.device)
+    def _put(self, site: str, x, dtype=None):
+        """Host array -> tensor on the backend's device; ``site`` names
+        the ``sync`` span (``put.<site>``)."""
+        return _upload(site, x, dtype, self.device)
 
     # -- capacity -------------------------------------------------------------
     def can_admit(self, n_prompt: int) -> bool:
@@ -375,7 +391,7 @@ class SlotBackend:
         own cache; the attention families come here on one device alone
         (under a mesh they take the chunked path)."""
         slot = self.slot_of[seq_id]
-        toks = self._put(prompt, torch.long)[None]
+        toks = self._put("one_shot", prompt, torch.long)[None]
         if self.cfg.family in ATTENTION_FAMILIES:
             logits, one = self.model.prefill(
                 self.stack.params[0], {"tokens": toks}, max_len=self.max_len,
@@ -405,7 +421,7 @@ class SlotBackend:
         masked to [0, pos + chunk)."""
         st, slot, start = self.stack, self.slot_of[task.seq_id], task.pos
         kv_len = start + chunk
-        toks = self._put(task.prompt[start:kv_len], torch.long)[None]
+        toks = self._put("chunk", task.prompt[start:kv_len], torch.long)[None]
         h = st.embed(toks)
         positions = start + torch.arange(chunk, device=self.device)[None, :]
         for i in range(self.cfg.num_layers):
@@ -457,7 +473,7 @@ class SlotBackend:
         """tokens_by_slot: (max_slots,). Steps every slot. Returns the
         (max_slots, V) logits on the host."""
         return _logits_to_host(self._decode_step(
-            self._put(tokens_by_slot, torch.long)))
+            self._put("decode", tokens_by_slot, torch.long)))
 
     def _fused_impl(self, st, K):
         """K fused decode+sample+stop-check steps on the device. A slot
@@ -483,13 +499,19 @@ class SlotBackend:
         in one device->host copy. ``host_state`` (when the engine's slot
         composition changed) re-seeds the device-resident state. Returns
         (tokens (K, max_slots), produced, done) numpy arrays."""
-        if host_state is not None:
-            self._dec_st = _upload_state(host_state, self.device)
+        with RECORDER.span("decode.prep"):
+            if host_state is not None:
+                self._dec_st = _upload_state(host_state, self.device)
+                self._live = int(np.count_nonzero(host_state["active"]))
         if self._dec_st is None:
             raise RuntimeError("fused_decode needs host_state on the first "
                                "call")
-        out, produced, done, self._dec_st = self._fused_impl(self._dec_st, K)
-        return _to_host(out, produced, done)
+        with RECORDER.span("decode.issue", K=K, K_run=K, live=self._live,
+                           max_slots=self.max_slots):
+            out, produced, done, self._dec_st = self._fused_impl(
+                self._dec_st, K)
+        with RECORDER.span("decode.sync"):
+            return _to_host(out, produced, done)
 
     @property
     def supports_fused_decode(self) -> bool:
@@ -517,7 +539,7 @@ class SlotBackend:
         lens = np.zeros((self.max_slots,), np.int32)
         for sid, n in lens_by_seq.items():
             lens[self.slot_of[sid]] = n
-        self.cache["len"] = self._put(lens)
+        self.cache["len"] = self._put("lens", lens)
 
     def spec_catch_up(self, seq_id: str, tokens: list, from_pos: int):
         """Draft-cache resync after non-speculative rounds advanced the
@@ -578,7 +600,7 @@ class SlotBackend:
             raise RuntimeError("spec_verify needs host_state on the first "
                                "call")
         st = self._dec_st
-        draft = self._put(draft_tokens, torch.long)
+        draft = self._put("spec", draft_tokens, torch.long)
         lens = self.cache["len"]
         logits = self._verify_forward(
             torch.cat([st["tokens"].long()[:, None], draft], dim=1), lens,
@@ -657,6 +679,7 @@ class PagedBackend:
         self.seq_of: dict[int, str] = {}
         self.decoding: set[str] = set()
         self._dec_st = None         # device-resident per-slot decode state
+        self._live = 0              # its active slots (the decode.issue attr)
         self._dev_tables = None     # device-resident (tables, lens) pair
         self._dev_tables_key = None  # kv.table_version the pair was built at
 
@@ -681,9 +704,10 @@ class PagedBackend:
                 and self.kv.can_allocate(n_prompt + 1)
                 and n_prompt < self.max_len)
 
-    def _put(self, x, dtype=None):
-        """Host array -> tensor on the backend's device."""
-        return torch.as_tensor(np.asarray(x), dtype=dtype, device=self.device)
+    def _put(self, site: str, x, dtype=None):
+        """Host array -> tensor on the backend's device; ``site`` names
+        the ``sync`` span (``put.<site>``)."""
+        return _upload(site, x, dtype, self.device)
 
     # -- attention dispatch ----------------------------------------------------
     def _attend(self, qs, kv, tables, lens):
@@ -758,10 +782,11 @@ class PagedBackend:
         cfg, ps = self.cfg, self.page_size
         S = len(prompt)
         n_pages = self.kv.pages_needed(S)
-        table = self._put(self.kv._tables[seq_id][:n_pages], torch.long)
+        table = self._put("one_shot", self.kv._tables[seq_id][:n_pages],
+                          torch.long)
         toks = torch.zeros((1, n_pages * ps), dtype=torch.long,
                            device=self.device)
-        toks[0, :S] = self._put(prompt, torch.long)
+        toks[0, :S] = self._put("one_shot", prompt, torch.long)
         h = self.stack.embed(toks)
         positions = torch.arange(n_pages * ps, device=self.device)[None, :]
         for i, lp in enumerate(self.stack.layers[0]):
@@ -788,11 +813,14 @@ class PagedBackend:
                 self._cow(*cow)
         table = self.kv._tables[task.seq_id]
         p = np.arange(pos, pos + chunk)
-        write_pages = self._put(np.asarray(table)[p // ps], torch.long)
-        write_offs = self._put(p % ps, torch.long)
+        write_pages = self._put("chunk", np.asarray(table)[p // ps],
+                                torch.long)
+        write_offs = self._put("chunk", p % ps, torch.long)
         n_ctx = self.kv.pages_needed(pos + chunk)
-        ctx_table = self._put(np.asarray(table[:n_ctx], np.int32)[None])
-        toks = self._put(task.prompt[pos:pos + chunk], torch.long)[None]
+        ctx_table = self._put("chunk",
+                              np.asarray(table[:n_ctx], np.int32)[None])
+        toks = self._put("chunk", task.prompt[pos:pos + chunk],
+                         torch.long)[None]
         idx = list(zip(st.replicate(write_pages), st.replicate(write_offs),
                        st.replicate(ctx_table)))
         h = st.embed(toks)
@@ -869,9 +897,10 @@ class PagedBackend:
         tables, lens = self._host_tables()
         page_idx = tables[np.arange(self.max_slots), lens // self.page_size]
         logits = self._decode_forward(
-            self._put(tokens_by_slot, torch.long), self._put(tables),
-            self._put(lens), self._put(page_idx, torch.long),
-            self._put(lens % self.page_size, torch.long))
+            self._put("decode", tokens_by_slot, torch.long),
+            self._put("decode", tables), self._put("decode", lens),
+            self._put("decode", page_idx, torch.long),
+            self._put("decode", lens % self.page_size, torch.long))
         for sid in self.decoding:
             self.kv.advance(sid)
         return _logits_to_host(logits)
@@ -991,20 +1020,26 @@ class PagedBackend:
         (``kv.table_version``) or the engine re-seeds the slot state.
         Returns (tokens (K_eff, max_slots), produced, done) numpy arrays.
         """
-        K_eff = self._reserve_headroom(max(1, K))
-        self._resolve_cow(K_eff)
-        self._refresh_tables(force=host_state is not None)
-        if host_state is not None:
-            self._dec_st = _upload_state(host_state, self.device)
+        with RECORDER.span("decode.prep"):
+            K_eff = self._reserve_headroom(max(1, K))
+            self._resolve_cow(K_eff)
+            self._refresh_tables(force=host_state is not None)
+            if host_state is not None:
+                self._dec_st = _upload_state(host_state, self.device)
+                self._live = int(np.count_nonzero(host_state["active"]))
         if self._dec_st is None:
             raise RuntimeError("fused_decode needs host_state on the first "
                                "call")
         tables_d, lens_d = self._dev_tables
         impl = self._fused_kernel_impl if self.use_kernel else self._fused_impl
-        out, produced, done, self._dec_st, lens_d = impl(
-            self._dec_st, tables_d, lens_d, K_eff)
+        with RECORDER.span("decode.issue", K=K, K_run=K_eff, live=self._live,
+                           max_slots=self.max_slots):
+            out, produced, done, self._dec_st, lens_d = impl(
+                self._dec_st, tables_d, lens_d, K_eff)
         self._dev_tables = (tables_d, lens_d)
-        return self._advance_decoding(*_to_host(out, produced, done))
+        with RECORDER.span("decode.sync"):
+            host = _to_host(out, produced, done)
+        return self._advance_decoding(*host)
 
     @property
     def supports_fused_decode(self) -> bool:
@@ -1049,7 +1084,8 @@ class PagedBackend:
         if (force or self._dev_tables is None
                 or self._dev_tables_key != self.kv.table_version):
             tables, lens = self._host_tables()
-            self._dev_tables = (self._put(tables), self._put(lens))
+            self._dev_tables = (self._put("tables", tables),
+                                self._put("tables", lens))
             self._dev_tables_key = self.kv.table_version
 
     # -- speculative decoding ----------------------------------------------------
@@ -1148,7 +1184,7 @@ class PagedBackend:
                                "call")
         st = self._dec_st
         tables_d, lens_d = self._dev_tables
-        draft = self._put(draft_tokens, torch.long)
+        draft = self._put("spec", draft_tokens, torch.long)
         logits = self._verify_forward(
             torch.cat([st["tokens"].long()[:, None], draft], dim=1), tables_d,
             lens_d, st["active"], self._ctx_pages(T))
@@ -1168,9 +1204,10 @@ class PagedBackend:
             raise OutOfPages(f"no page headroom for a verify block of {T}")
         self._prepare_verify(T, force=True)
         tables_d, lens_d = self._dev_tables
-        live = self._put([self.seq_of.get(s) in self.decoding
-                          for s in range(self.max_slots)])
-        return self._verify_forward(self._put(tokens_in, torch.long),
+        live = self._put("verify", [self.seq_of.get(s) in self.decoding
+                                    for s in range(self.max_slots)])
+        return self._verify_forward(self._put("verify", tokens_in,
+                                              torch.long),
                                     tables_d, lens_d, live, self._ctx_pages(T))
 
     # -- swap preemption -----------------------------------------------------------
@@ -1181,11 +1218,14 @@ class PagedBackend:
         sequence afterwards; ``swap_in`` restores it into fresh pages."""
         n_tokens = self.kv.length(seq_id)
         n_pages = self.kv.pages_needed(n_tokens)
-        table = self._put(self.kv._tables[seq_id][:n_pages], torch.long)
+        table = self._put("swap_out", self.kv._tables[seq_id][:n_pages],
+                          torch.long)
         parts = [{n: pool[:, table.to(pool.device)] for n, pool in p.items()}
                  for p in self.pool_shards]
         kv = parts[0] if self.shard is None else self.shard.gather_pools(parts)
-        return {"k": kv["k"].cpu(), "v": kv["v"].cpu(), "n_tokens": n_tokens}
+        with RECORDER.sync("swap_out", n=2, h2d=False):
+            return {"k": kv["k"].cpu(), "v": kv["v"].cpu(),
+                    "n_tokens": n_tokens}
 
     def swap_in(self, seq_id: str, n_tokens: int, blob: dict) -> None:
         """Rebind a swapped-out sequence: reserve a slot, allocate fresh
@@ -1198,12 +1238,14 @@ class PagedBackend:
         slot = self.free_slots.pop()
         self.slot_of[seq_id] = slot
         self.seq_of[slot] = seq_id
-        pages = self._put(self.kv.allocate(seq_id, n_tokens), torch.long)
+        pages = self._put("swap_in", self.kv.allocate(seq_id, n_tokens),
+                          torch.long)
         kv = {"k": blob["k"], "v": blob["v"]}
         parts = [kv] if self.shard is None else self.shard.shard_pools(kv)
-        for pools, part in zip(self.pool_shards, parts):
-            for name, pool in pools.items():
-                pool[:, pages.to(pool.device)] = part[name].to(pool.device)
+        with RECORDER.sync("swap_in", n=2 * len(parts)):
+            for pools, part in zip(self.pool_shards, parts):
+                for name, pool in pools.items():
+                    pool[:, pages.to(pool.device)] = part[name].to(pool.device)
         self.decoding.add(seq_id)
 
     # -- lifecycle -----------------------------------------------------------------

@@ -39,6 +39,8 @@ Features, as in the reference:
 * **Control-plane calls**: ``abort``, ``resume_request`` (cross-engine
   failover through the restore path), ``saturated`` (autoscaler signal),
   ``num_running``, ``num_waiting``, ``waiting``.
+* **Tracing**: spans and counters of each step's host work, recorded
+  while a ``torch.profiler`` session runs (``serving/tracing.py``).
 
 Two cache backends, as in the reference: ``backend="slots"`` (the
 default; every decoder family: dense, moe, vlm, SSM and hybrid; one
@@ -71,11 +73,15 @@ from repro_torch.serving.request import (InferenceRequest, RequestMetrics,
 from repro_torch.serving.sampler import (SEED_MOD, sample_token,
                                          sample_tokens, seed_base)
 from repro_torch.serving.scheduler import SchedulingPolicy, make_policy
+from repro_torch.serving.tracing import RECORDER
 
 
 class _RealClock:
+    """``time.perf_counter``: the clock of the spans and of the benchmark
+    harness, so request times, spans and harness steps share one axis."""
+
     def now(self) -> float:
-        return time.monotonic()
+        return time.perf_counter()
 
 
 @dataclass
@@ -265,6 +271,7 @@ class ContinuousBatchingEngine:
         m = RequestMetrics(arrival_time=req.arrival_time or self.clock.now(),
                            queued_time=self.clock.now())
         req._metrics = m
+        req._queued_ns = RECORDER.clock()       # the ``queue`` span's start
         if on_delta is not None:
             self._delta_subs[req.request_id] = on_delta
         self.policy.add(req)
@@ -282,6 +289,7 @@ class ContinuousBatchingEngine:
         m = RequestMetrics(arrival_time=req.arrival_time or self.clock.now(),
                            queued_time=self.clock.now())
         req._metrics = m
+        req._queued_ns = RECORDER.clock()
         if on_delta is not None:
             self._delta_subs[req.request_id] = on_delta
         run = _Running(req=req, metrics=m,
@@ -403,6 +411,7 @@ class ContinuousBatchingEngine:
         run.metrics.preemptions += 1
         self.stats["preemptions"] += 1
         self._preempted[request_id] = run
+        run.req._queued_ns = RECORDER.clock()
         self.policy.requeue(run.req)
         return True
 
@@ -452,6 +461,14 @@ class ContinuousBatchingEngine:
 
     # -- engine iteration ---------------------------------------------------------
     def step(self) -> list[RequestOutput]:
+        if RECORDER.refresh():
+            with RECORDER.span("step", running=len(self.running),
+                               prefilling=len(self.prefilling),
+                               waiting=len(self.policy)):
+                return self._step()
+        return self._step()
+
+    def _step(self) -> list[RequestOutput]:
         self.stats["steps"] += 1
         finished: list[RequestOutput] = []
 
@@ -471,7 +488,8 @@ class ContinuousBatchingEngine:
             if self.draft_backend is not None and not self.prefilling:
                 # speculative round; while chunked prefill interleaves, the
                 # plain fused path (K = 1) keeps time-between-tokens bounded
-                self._decode_spec(by_slot, finished)
+                with RECORDER.span("spec.round"):
+                    self._decode_spec(by_slot, finished)
             elif self.cfg.fused_decode and self.backend.supports_fused_decode:
                 self._decode_fused(by_slot, finished)
             else:
@@ -506,27 +524,32 @@ class ContinuousBatchingEngine:
         if self.prefilling or st.dirty:
             # prefill in flight or batch composition changed: sync every
             # token so chunked prefill interleaves unchanged
+            if K > 1:
+                RECORDER.count("decode_k1.prefill" if self.prefilling
+                               else "decode_k1.batch_changed")
             K = 1
         toks, produced, done = self.backend.fused_decode(
             K, st.host_state() if st.dirty else None)
+        RECORDER.count("decode_calls")
         st.dirty = False
         self.stats["decode_syncs"] += 1
-        for s, run in by_slot.items():
-            p = int(produced[s])
-            new = [int(toks[j, s]) for j in range(p)]
-            run.output_tokens.extend(new)
-            st.tokens[s] = run.last_token
-            st.n_gen[s] += p
-            self.stats["decode_tokens"] += p
-            self._emit_delta(run, new)
-            f = self._maybe_finish(run)
-            if (f is not None) != bool(done[s]):
-                raise RuntimeError(
-                    f"fused decode divergence for {run.req.request_id}: "
-                    f"device done={bool(done[s])}, host finish="
-                    f"{f.finish_reason if f else None}")
-            if f:
-                finished.append(f)
+        with RECORDER.span("decode.emit"):
+            for s, run in by_slot.items():
+                p = int(produced[s])
+                new = [int(toks[j, s]) for j in range(p)]
+                run.output_tokens.extend(new)
+                st.tokens[s] = run.last_token
+                st.n_gen[s] += p
+                self.stats["decode_tokens"] += p
+                self._emit_delta(run, new)
+                f = self._maybe_finish(run)
+                if (f is not None) != bool(done[s]):
+                    raise RuntimeError(
+                        f"fused decode divergence for {run.req.request_id}: "
+                        f"device done={bool(done[s])}, host finish="
+                        f"{f.finish_reason if f else None}")
+                if f:
+                    finished.append(f)
 
     def _draft_state(self) -> dict:
         """Per-slot state for the draft's proposal loop: the target's
@@ -605,23 +628,29 @@ class ContinuousBatchingEngine:
 
     # -- prefill scheduling -------------------------------------------------------
     def _admit(self) -> tuple[_Running, PrefillTask]:
-        req = self.policy.pop()
-        self.policy.on_admitted(req)
-        run = self._preempted.pop(req.request_id, None)
-        if run is not None:
-            return self._admit_restore(run)
-        run = _Running(req=req, metrics=req._metrics)
-        task = self.backend.start_prefill(req.request_id, req.prompt_tokens)
-        if self.draft_backend is not None:
-            # reserve the draft's slot/pages NOW so both backends see the
-            # same admit/free order (their slot indices stay equal); the
-            # draft's prompt is computed one-shot when the target's prefill
-            # completes
-            run.draft_task = self.draft_backend.start_prefill(
-                req.request_id, req.prompt_tokens)
-        run.metrics.cached_prompt_tokens = task.cached_tokens
-        self.stats["cached_prompt_tokens"] += task.cached_tokens
-        return run, task
+        with RECORDER.span("admit") as span:
+            req = self.policy.pop()
+            RECORDER.add("queue", req._queued_ns, req.request_id)
+            span.set(rid=req.request_id)
+            self.policy.on_admitted(req)
+            run = self._preempted.pop(req.request_id, None)
+            if run is not None:
+                run.metrics.admitted_time = self.clock.now()
+                return self._admit_restore(run)
+            run = _Running(req=req, metrics=req._metrics)
+            run.metrics.admitted_time = self.clock.now()
+            task = self.backend.start_prefill(req.request_id,
+                                              req.prompt_tokens)
+            if self.draft_backend is not None:
+                # reserve the draft's slot/pages NOW so both backends see
+                # the same admit/free order (their slot indices stay
+                # equal); the draft's prompt is computed one-shot when the
+                # target's prefill completes
+                run.draft_task = self.draft_backend.start_prefill(
+                    req.request_id, req.prompt_tokens)
+            run.metrics.cached_prompt_tokens = task.cached_tokens
+            self.stats["cached_prompt_tokens"] += task.cached_tokens
+            return run, task
 
     def _admit_restore(self, run: _Running) \
             -> tuple[_Running, PrefillTask | None]:
@@ -667,8 +696,7 @@ class ContinuousBatchingEngine:
             admitted += 1
             if task is None:                  # swap-in restore: no prefill
                 continue
-            logits, n = self.backend.prefill_chunk(task, None)
-            self._account_chunk(run, n)
+            logits, _ = self._prefill_chunk(run, task, None)
             self._finish_ingest(run, logits, finished)
 
     def _prefill_chunked(self, finished: list):
@@ -679,9 +707,8 @@ class ContinuousBatchingEngine:
         for rid, (run, task) in list(self.prefilling.items()):
             if left <= 0:
                 return
-            logits, n = self.backend.prefill_chunk(task, left)
+            logits, n = self._prefill_chunk(run, task, left)
             left -= n
-            self._account_chunk(run, n)
             if logits is not None:
                 del self.prefilling[rid]
                 self._finish_ingest(run, logits, finished)
@@ -694,37 +721,44 @@ class ContinuousBatchingEngine:
             admitted += 1
             if task is None:                  # swap-in restore: no prefill
                 continue
-            logits, n = self.backend.prefill_chunk(task, left)
+            logits, n = self._prefill_chunk(run, task, left)
             left -= n
-            self._account_chunk(run, n)
             if logits is not None:
                 self._finish_ingest(run, logits, finished)
             else:
                 self.prefilling[run.req.request_id] = (run, task)
 
-    def _account_chunk(self, run: _Running, n_tokens: int):
-        self.stats["prefill_tokens"] += n_tokens
+    def _prefill_chunk(self, run: _Running, task: PrefillTask, budget):
+        """One chunk of ``task`` (all of it for ``budget`` None), counted.
+        Returns the backend's (logits | None, tokens computed)."""
+        with RECORDER.span("prefill.chunk", run.req.request_id,
+                           start=task.pos) as sp:
+            logits, n = self.backend.prefill_chunk(task, budget)
+            sp.set(tokens=n)
+        self.stats["prefill_tokens"] += n
         self.stats["prefill_chunks"] += 1
         run.metrics.prefill_chunks += 1
+        return logits, n
 
     def _finish_prefill(self, run: _Running, logits, finished: list):
-        tok = self._sample_one(run.req, logits, step=0)
-        run.output_tokens.append(tok)
-        run.metrics.first_token_time = self.clock.now()
-        self.stats["decode_tokens"] += 1
-        self._emit_delta(run, [tok])
-        self.running[run.req.request_id] = run
-        f = self._maybe_finish(run)
-        if f:
-            finished.append(f)
-        else:
-            if run.draft_task is not None:
-                # the draft's KV for the whole prompt in one shot (its
-                # logits stay on the device, unused)
-                self.draft_backend.prefill_chunk(run.draft_task, None)
-                run.draft_len = len(run.req.prompt_tokens)
-                self._check_draft_slot(run.req.request_id)
-            self._activate_slot(run)
+        with RECORDER.span("first_token", run.req.request_id):
+            tok = self._sample_one(run.req, logits, step=0)
+            run.output_tokens.append(tok)
+            run.metrics.first_token_time = self.clock.now()
+            self.stats["decode_tokens"] += 1
+            self._emit_delta(run, [tok])
+            self.running[run.req.request_id] = run
+            f = self._maybe_finish(run)
+            if f:
+                finished.append(f)
+            else:
+                if run.draft_task is not None:
+                    # the draft's KV for the whole prompt in one shot (its
+                    # logits stay on the device, unused)
+                    self.draft_backend.prefill_chunk(run.draft_task, None)
+                    run.draft_len = len(run.req.prompt_tokens)
+                    self._check_draft_slot(run.req.request_id)
+                self._activate_slot(run)
 
     def _finish_restore(self, run: _Running):
         """A preempted victim's KV is whole again (swap-in or restore
@@ -782,7 +816,9 @@ class ContinuousBatchingEngine:
         the sampled id crosses to the host."""
         sp = req.sampling
         seed = (seed_base(sp.seed) + step) % SEED_MOD
-        return int(sample_token(logits, sp.temperature, sp.top_p, seed))
+        tok = sample_token(logits, sp.temperature, sp.top_p, seed)
+        with RECORDER.sync("first_token", h2d=False):
+            return int(tok)
 
     def _emit_delta(self, run: _Running, toks):
         """Push newly appended tokens to the request's stream subscriber

@@ -42,6 +42,7 @@ class InferenceRequest:
 class RequestMetrics:
     arrival_time: float = 0.0
     queued_time: float = 0.0       # entered engine queue
+    admitted_time: float = 0.0     # left the queue (last admission)
     first_token_time: float = 0.0
     finish_time: float = 0.0
     cached_prompt_tokens: int = 0  # prompt tokens served from the prefix cache

@@ -28,6 +28,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.serving.tracing import RECORDER
+
 SEED_MOD = 2 ** 31 - 1
 SEED_MULT = 1_000_003
 _M32 = 0xFFFFFFFF
@@ -85,9 +87,11 @@ def gumbel(seeds, n: int):
     bits = random_bits(seeds, n)
     mant = ((bits >> 9) | 0x3F800000).to(torch.int32)     # [1, 2) as bits
     floats = mant.view(torch.float32) - 1.0
-    tiny = torch.tensor(torch.finfo(torch.float32).tiny, dtype=torch.float32,
-                        device=floats.device)
-    span = torch.tensor(1.0, dtype=torch.float32, device=floats.device) - tiny
+    with RECORDER.sync("gumbel", n=2):
+        tiny = torch.tensor(torch.finfo(torch.float32).tiny,
+                            dtype=torch.float32, device=floats.device)
+        one = torch.tensor(1.0, dtype=torch.float32, device=floats.device)
+    span = one - tiny
     u = torch.maximum(floats * span + tiny, tiny)
     return -torch.log(-torch.log(u))
 
@@ -116,11 +120,11 @@ def sample_from_logits(logits, temperature, top_p, seeds):
 def _sample_one(lg, temp, tp, seed):
     """lg: (V,) logits; temp/tp: floats; seed: int -> 0-dim int32 tensor."""
     dev = lg.device
-    return sample_from_logits(
-        lg.float()[None],
-        torch.tensor([temp], dtype=torch.float32, device=dev),
-        torch.tensor([tp], dtype=torch.float32, device=dev),
-        torch.tensor([seed], dtype=torch.int64, device=dev))[0]
+    with RECORDER.sync("sample_params", n=3):
+        temps = torch.tensor([temp], dtype=torch.float32, device=dev)
+        top_ps = torch.tensor([tp], dtype=torch.float32, device=dev)
+        seeds = torch.tensor([seed], dtype=torch.int64, device=dev)
+    return sample_from_logits(lg.float()[None], temps, top_ps, seeds)[0]
 
 
 def sample_tokens(logits, temperature, top_p, seeds):
