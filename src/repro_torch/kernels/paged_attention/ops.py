@@ -67,6 +67,14 @@ def _workspace(dev, stream: int, B: int, H: int, D: int, n_pos: int):
     return ws
 
 
+def cached_workspace(dev, stream: int):
+    """The workspace and counters cached for ``dev`` / ``stream``, or None
+    before its first call. A CUDA graph that captured a launch on that
+    stream holds them, so that a later call which grows them cannot free
+    what the graph's launches point at."""
+    return _WORKSPACE.get((dev.index, stream))
+
+
 def _group(q, KH: int) -> int:
     H = q.shape[1]
     if H % KH:

@@ -43,9 +43,11 @@ Three decode calls, as in the reference:
   chunks, ``paged_attention`` for the legacy step, and in the fused loop
   ``fused_decode_attention`` over committed pages plus (L, B, K, KH, hd)
   tail buffers: nothing is written to the pool inside the K-loop and the
-  tails are committed with one scatter per call. On CPU tensors each
-  wrapper runs its kernel's plain version; on CUDA tensors it launches the
-  kernel or raises.
+  tails are committed with one scatter per call. On one CUDA device the
+  loop's step is captured once as a CUDA graph over static buffers and
+  replayed (``_DecodeGraph``); under a mesh it is issued op by op. On CPU
+  tensors each wrapper runs its kernel's plain version; on CUDA tensors it
+  launches the kernel or raises.
 * False: the plain versions directly (the reference tier), with the
   per-step pool write of the reference's ``_fused_impl``.
 
@@ -98,10 +100,11 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.distributed.sharding import ServeSharding
+from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention.ops import paged_flash_prefill
 from repro_torch.kernels.flash_attention.ref import paged_prefill_attention_ref
 from repro_torch.kernels.paged_attention.ops import (
-    fused_decode_attention_sharded, paged_attention_sharded,
+    cached_workspace, fused_decode_attention_sharded, paged_attention_sharded,
     shardable_kv_heads)
 from repro_torch.kernels.paged_attention.ref import (
     fused_decode_attention_sharded_ref, gather_kv,
@@ -142,16 +145,19 @@ def _logits_to_host(x) -> np.ndarray:
     return out
 
 
-def _upload_state(host_state: dict, device) -> dict:
+def _upload_state(host_state: dict, device, into: dict | None = None) -> dict:
     """Per-slot decode state to the device (a copy). uint32 seed bases
-    travel as int64: torch has no complete uint32 op set."""
+    travel as int64: torch has no complete uint32 op set. ``into``: device
+    tensors of the same keys and shapes (a decode graph's static state) to
+    copy into, each cast to its dtype, in place of new ones."""
     out = {}
     with RECORDER.sync("upload_state", n=len(host_state)):
         for k, v in host_state.items():
             arr = np.array(v)
             if arr.dtype == np.uint32:
                 arr = arr.astype(np.int64)
-            out[k] = torch.from_numpy(arr).to(device)
+            out[k] = torch.from_numpy(arr).to(device) if into is None \
+                else into[k].copy_(torch.from_numpy(arr))
     return out
 
 
@@ -160,6 +166,13 @@ def _upload(site: str, x, dtype, device):
     (the backend step that asked)."""
     with RECORDER.sync("put." + site):
         return torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
+
+
+def _upload_into(site: str, dst, x):
+    """Host array -> into the device tensor ``dst`` (cast to its dtype):
+    a ``sync`` span at ``put.<site>``, as :func:`_upload`."""
+    with RECORDER.sync("put." + site):
+        return dst.copy_(torch.from_numpy(np.asarray(x)))
 
 
 def _to_host(out, produced, done):
@@ -238,6 +251,12 @@ def _spec_accept_and_latch(st, logits, draft):
     tokens = torch.where(produced > 0, last[:, 0], st["tokens"])
     st = dict(st, tokens=tokens, n_gen=st["n_gen"] + produced)
     return targets, produced, done, st
+
+
+def _replays_decode(use_kernel: bool, shard, device) -> bool:
+    """Whether the paged backend replays its fused decode step as a CUDA
+    graph: on the kernel tier, on one device, a CUDA one."""
+    return use_kernel and shard is None and device.type == "cuda"
 
 
 def _lead_device(device, shard) -> torch.device:
@@ -486,6 +505,7 @@ class SlotBackend:
         done = torch.zeros((B,), dtype=torch.bool, device=self.device)
         produced = torch.zeros((B,), dtype=torch.int32, device=self.device)
         out = torch.zeros((K, B), dtype=torch.int32, device=self.device)
+        RECORDER.count("decode_graph.eager", K)
         for i in range(K):
             logits = self._decode_step(tokens)
             live = st["active"] & ~done
@@ -682,6 +702,11 @@ class PagedBackend:
         self._live = 0              # its active slots (the decode.issue attr)
         self._dev_tables = None     # device-resident (tables, lens) pair
         self._dev_tables_key = None  # kv.table_version the pair was built at
+        # the kernel tier on one CUDA device replays its fused decode step
+        # as a CUDA graph (made on the first fused call)
+        self._graphable = _replays_decode(use_kernel, self.shard,
+                                          self.device)
+        self._graph = None
 
     @property
     def pools(self) -> dict:
@@ -918,6 +943,7 @@ class PagedBackend:
         produced = torch.zeros((B,), dtype=torch.int32, device=self.device)
         out = torch.zeros((K, B), dtype=torch.int32, device=self.device)
         last = tables.shape[1] - 1
+        RECORDER.count("decode_graph.eager", K)
         for i in range(K):
             live = st["active"] & ~done
             page_slot = torch.clamp(lens // ps, max=last).long()
@@ -940,9 +966,13 @@ class PagedBackend:
         commits every valid tail row; rows past ``produced`` are routed to
         trash page 0 (the explicit mask that stands in for the reference's
         out-of-bounds ``mode="drop"``). Emits the same token stream as
-        :meth:`_fused_impl`. Returns (tokens (K, B), produced, done, st,
+        :meth:`_fused_impl`. With a decode graph (one CUDA device) the
+        steps are its replays (:meth:`_fused_graph`); otherwise they are
+        issued op by op. Returns (tokens (K, B), produced, done, st,
         lens)."""
-        ps, tp = self.page_size, self.stack
+        if self._graph is not None:
+            return self._fused_graph(st, tables, lens0, K)
+        tp = self.stack
         B = st["tokens"].shape[0]
         L, dev = self.cfg.num_layers, self.device
         # (L, B, K, KH_s, hd_s) tails beside each shard's pools
@@ -951,63 +981,104 @@ class PagedBackend:
                        for n in ("k", "v")) for p in self.pool_shards]
         tabs, lens0s = tp.replicate(tables), tp.replicate(lens0)
         bidxs = tp.replicate(torch.arange(B, device=dev))
-        n_k = tables.shape[1] * ps
         tokens, n_gen = st["tokens"], st["n_gen"]
         done = torch.zeros((B,), dtype=torch.bool, device=dev)
         produced = torch.zeros((B,), dtype=torch.int32, device=dev)
         out = torch.zeros((K, B), dtype=torch.int32, device=dev)
+        RECORDER.count("decode_graph.eager", K)
         for i in range(K):
-            live = st["active"] & ~done
-            # ``produced`` doubles as the tail write cursor: slot b's valid
-            # tail rows are [0, produced[b]) and this step writes row
-            # produced[b] (dead slots overwrite that row; their outputs are
-            # discarded by the live mask)
-            h = tp.embed(tokens[:, None])
-            positions = (lens0 + produced)[:, None]
-            tail_lens = produced + 1
-            tls, rows = tp.replicate(tail_lens), tp.replicate(produced.long())
-            for l in range(L):
-                def attend(qkv, kv=self._kv(l)):
-                    for (_, k, v), (kt, vt), b, r in zip(qkv, tails, bidxs,
-                                                         rows):
-                        kt[l][b, r] = k[:, 0].to(self.dtype)
-                        vt[l][b, r] = v[:, 0].to(self.dtype)
-                    qs = [q[:, 0] for q, _, _ in qkv]
-                    if tp.kv_split == "heads":
-                        return [a[:, None] for a in self._tail_attend(
-                            qs, kv, tabs, lens0s, [t[0][l] for t in tails],
-                            [t[1][l] for t in tails], tls)]
-                    ok = torch.cat([
-                        torch.arange(n_k, device=dev)[None, :]
-                        < lens0.long()[:, None],
-                        torch.arange(K, device=dev)[None, :]
-                        < tail_lens.long()[:, None]], dim=1)
-
-                    def context(s):
-                        return tuple(torch.cat([gather_kv(c, tabs[s]), t[l]],
-                                               dim=1)
-                                     for c, t in zip(kv[s], tails[s]))
-                    return tp.split_attention([q for q, _, _ in qkv],
-                                              context, ok[:, None])
-
-                h = tp.block(h, l, positions, attend)
-            logits = tp.head(h[:, 0])
-            tokens, n_gen, done, produced = _sample_and_latch(
-                st, logits, tokens, n_gen, done, produced, live)
+            tokens, n_gen, done, produced = self._kernel_step(
+                st, tokens, n_gen, done, produced, tabs, lens0, lens0s,
+                bidxs, tails)
             out[i] = tokens
-        # one deferred commit per pool: (L, B, K) tail rows -> their pages
-        jj = torch.arange(K, device=dev)[None, :]
-        pos = lens0[:, None] + jj                               # (B, K)
+        self._commit_tails(tails, tables, lens0, produced)
+        st = dict(st, tokens=tokens, n_gen=n_gen)
+        return out, produced, done, st, lens0 + produced
+
+    def _kernel_step(self, st, tokens, n_gen, done, produced, tabs, lens0,
+                     lens0s, bidxs, tails):
+        """One step of the kernel tier's loop: the forward of every slot
+        against committed pages + tails, then sample and latch. ``tabs``,
+        ``lens0s``, ``bidxs`` and ``tails`` are per shard; the tails hold
+        Kt >= the call's K rows. Returns (tokens, n_gen, done,
+        produced)."""
+        tp, dev = self.stack, self.device
+        Kt = tails[0][0].shape[2]
+        n_k = tabs[0].shape[1] * self.page_size
+        live = st["active"] & ~done
+        # ``produced`` doubles as the tail write cursor: slot b's valid
+        # tail rows are [0, produced[b]) and this step writes row
+        # produced[b] (dead slots overwrite that row; their outputs are
+        # discarded by the live mask)
+        h = tp.embed(tokens[:, None])
+        positions = (lens0 + produced)[:, None]
+        tail_lens = produced + 1
+        tls, rows = tp.replicate(tail_lens), tp.replicate(produced.long())
+        for l in range(self.cfg.num_layers):
+            def attend(qkv, kv=self._kv(l)):
+                for (_, k, v), (kt, vt), b, r in zip(qkv, tails, bidxs,
+                                                     rows):
+                    kt[l][b, r] = k[:, 0].to(self.dtype)
+                    vt[l][b, r] = v[:, 0].to(self.dtype)
+                qs = [q[:, 0] for q, _, _ in qkv]
+                if tp.kv_split == "heads":
+                    return [a[:, None] for a in self._tail_attend(
+                        qs, kv, tabs, lens0s, [t[0][l] for t in tails],
+                        [t[1][l] for t in tails], tls)]
+                ok = torch.cat([
+                    torch.arange(n_k, device=dev)[None, :]
+                    < lens0.long()[:, None],
+                    torch.arange(Kt, device=dev)[None, :]
+                    < tail_lens.long()[:, None]], dim=1)
+
+                def context(s):
+                    return tuple(torch.cat([gather_kv(c, tabs[s]), t[l]],
+                                           dim=1)
+                                 for c, t in zip(kv[s], tails[s]))
+                return tp.split_attention([q for q, _, _ in qkv],
+                                          context, ok[:, None])
+
+            h = tp.block(h, l, positions, attend)
+        logits = tp.head(h[:, 0])
+        return _sample_and_latch(st, logits, tokens, n_gen, done, produced,
+                                 live)
+
+    def _commit_tails(self, tails, tables, lens0, produced) -> None:
+        """The deferred commit, one scatter per pool: the (L, B, Kt) tail
+        rows below ``produced`` to their pages, every other row to trash
+        page 0."""
+        ps, dev = self.page_size, self.device
+        jj = torch.arange(tails[0][0].shape[2], device=dev)[None, :]
+        pos = lens0[:, None] + jj                               # (B, Kt)
         valid = jj < produced[:, None]
         page_slot = torch.clamp(pos // ps, max=tables.shape[1] - 1).long()
         page_idx = torch.where(valid, tables.gather(1, page_slot), 0).long()
         off = torch.where(valid, pos % ps, 0).long()
+        tp = self.stack
         for p, t, pi, o in zip(self.pool_shards, tails,
                                tp.replicate(page_idx), tp.replicate(off)):
             p["k"][:, pi, o] = t[0]
             p["v"][:, pi, o] = t[1]
-        st = dict(st, tokens=tokens, n_gen=n_gen)
-        return out, produced, done, st, lens0 + produced
+
+    def _fused_graph(self, st, tables, lens0, K):
+        """The kernel tier's K steps as replays of the decode graph: the
+        call's state is brought into its static buffers, each step is one
+        replay and one copy of its tokens into the output, and the tails'
+        K_cap rows are committed after the loop. Returns what
+        :meth:`_fused_kernel_impl` returns, the static buffers among
+        them."""
+        g = self._graph
+        g.bind(st, tables, lens0)
+        g.done.zero_()
+        g.produced.zero_()
+        out = torch.zeros((K, self.max_slots), dtype=torch.int32,
+                          device=self.device)
+        for i in range(K):
+            g.iterate()
+            out[i] = g.st["tokens"]
+        self._commit_tails([g.tails], g.tables, g.lens, g.produced)
+        g.lens.add_(g.produced)
+        return out, g.produced, g.done, g.st, g.lens
 
     def fused_decode(self, K: int, host_state: dict | None = None):
         """Run up to K decode steps on the device; sync only token ids and
@@ -1023,9 +1094,15 @@ class PagedBackend:
         with RECORDER.span("decode.prep"):
             K_eff = self._reserve_headroom(max(1, K))
             self._resolve_cow(K_eff)
+            if self._graphable:
+                if self._graph is None:
+                    self._graph = _DecodeGraph(self)
+                self._graph.reserve(max(1, K))
             self._refresh_tables(force=host_state is not None)
             if host_state is not None:
-                self._dec_st = _upload_state(host_state, self.device)
+                self._dec_st = _upload_state(
+                    host_state, self.device,
+                    into=None if self._graph is None else self._graph.st)
                 self._live = int(np.count_nonzero(host_state["active"]))
         if self._dec_st is None:
             raise RuntimeError("fused_decode needs host_state on the first "
@@ -1080,12 +1157,16 @@ class PagedBackend:
 
     def _refresh_tables(self, force: bool) -> None:
         """(Re)upload the device-resident (block tables, lengths) pair when
-        the allocator state moved from under the cached copy."""
+        the allocator state moved from under the cached copy: into the
+        decode graph's static pair where there is one."""
         if (force or self._dev_tables is None
                 or self._dev_tables_key != self.kv.table_version):
             tables, lens = self._host_tables()
-            self._dev_tables = (self._put("tables", tables),
-                                self._put("tables", lens))
+            g = self._graph
+            self._dev_tables = (
+                (self._put("tables", tables), self._put("tables", lens))
+                if g is None else (_upload_into("tables", g.tables, tables),
+                                   _upload_into("tables", g.lens, lens)))
             self._dev_tables_key = self.kv.table_version
 
     # -- speculative decoding ----------------------------------------------------
@@ -1271,3 +1352,125 @@ class PagedBackend:
         s["hit_rate"] = self.kv.hit_rate()
         s["cached_free_pages"] = self.kv.cached_free_pages
         return s
+
+
+class _DecodeGraph:
+    """One step of the kernel tier's fused decode loop
+    (:meth:`PagedBackend._kernel_step` at B = ``max_slots``, one device)
+    over static buffers, captured as a CUDA graph and replayed once a step.
+
+    The buffers are the per-slot decode state ``st`` (tokens, n_gen,
+    active, temps, top_ps, seed_base, stop_tok, gen_limit), the device
+    (tables, lens) pair, ``done`` / ``produced``, and the
+    (L, B, K_cap, KH, hd) tails, K_cap the largest K asked so far.
+    ``_upload_state`` and ``_refresh_tables`` copy into them; state a call
+    hands in from elsewhere (the speculative verify's) is copied in on the
+    device (:meth:`bind`). A larger K regrows the tails and drops the graph,
+    to be captured again. The paged kernel reads its lengths on the device
+    and runs at ``kt_cap = K_cap``; tail rows past a slot's length are
+    never read, and the split-K schedule depends on the length alone, so
+    K_cap rows give what K rows give.
+
+    Capture runs the step once on the capture stream, which makes the
+    workspaces cuBLAS and the paged kernel keep per stream and sets the
+    kernel's shared-memory attribute, puts back the state that step moved,
+    then records the step. The launches each kernel wrapper made while it
+    was recorded are added to ``_build.LAUNCHES`` on every replay (the
+    warm-up's are not counted: a replay redoes that step). Off CUDA
+    nothing is captured and a step is a direct call, op by op."""
+
+    def __init__(self, backend: PagedBackend):
+        B, dev = backend.max_slots, backend.device
+        self.backend = backend
+        self.tables = torch.zeros((B, backend.pages_per_seq),
+                                  dtype=torch.int32, device=dev)
+        self.lens = torch.zeros((B,), dtype=torch.int32, device=dev)
+        self.produced = torch.zeros((B,), dtype=torch.int32, device=dev)
+        self.done = torch.zeros((B,), dtype=torch.bool, device=dev)
+        self.bidx = torch.arange(B, device=dev)
+        self.st = None
+        self.tails = None
+        self.k_cap = 0
+        self.graph = None
+        self.stream = None
+        self.launches = {}
+        self.workspace = None       # the paged kernel's, while the graph lives
+
+    def reserve(self, K: int) -> None:
+        """Tails of at least K rows: regrown, and the graph dropped, when K
+        exceeds K_cap."""
+        if K <= self.k_cap:
+            return
+        bk = self.backend
+        self.graph = None
+        self.tails = tuple(
+            torch.zeros((bk.cfg.num_layers, bk.max_slots, K,
+                         *bk.pools[n].shape[3:]), dtype=bk.dtype,
+                        device=bk.device) for n in ("k", "v"))
+        self.k_cap = K
+
+    def bind(self, st: dict, tables, lens) -> None:
+        """A call's state into the static buffers: device copies of what
+        is held elsewhere."""
+        if self.st is None:
+            self.st = {k: v.clone() for k, v in st.items()}
+        elif st is not self.st:
+            for k, v in st.items():
+                self.st[k].copy_(v)
+        for dst, src in ((self.tables, tables), (self.lens, lens)):
+            if src is not dst:
+                dst.copy_(src)
+
+    def step(self) -> None:
+        """One step on the static buffers, its results copied back into
+        them."""
+        st = self.st
+        new = self.backend._kernel_step(
+            st, st["tokens"], st["n_gen"], self.done, self.produced,
+            [self.tables], self.lens, [self.lens], [self.bidx], [self.tails])
+        for dst, src in zip((st["tokens"], st["n_gen"], self.done,
+                             self.produced), new):
+            dst.copy_(src)
+
+    def iterate(self) -> None:
+        """One step: a replay on CUDA (captured first if need be), else a
+        direct call."""
+        if self.graph is None and self.backend.device.type == "cuda":
+            self._capture()
+        if self.graph is None:
+            self.step()
+            RECORDER.count("decode_graph.eager")
+            return
+        self.graph.replay()
+        for name, n in self.launches.items():
+            _build.LAUNCHES[name] += n
+        RECORDER.count("decode_graph.replay")
+
+    def _capture(self) -> None:
+        dev = self.backend.device
+        cur = torch.cuda.current_stream(dev)
+        if self.stream is None:
+            self.stream = torch.cuda.Stream(dev)
+        s = self.stream
+        moved = (self.st["tokens"], self.st["n_gen"], self.done,
+                 self.produced)
+        before = dict(_build.LAUNCHES)
+        s.wait_stream(cur)
+        with torch.cuda.stream(s):
+            kept = [t.clone() for t in moved]
+            self.step()
+            for t, k in zip(moved, kept):
+                t.copy_(k)
+        cur.wait_stream(s)
+        self.workspace = cached_workspace(dev, s.cuda_stream)
+        warm = dict(_build.LAUNCHES)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=s,
+                              capture_error_mode="thread_local"):
+            self.step()
+        self.launches = {name: n - warm[name]
+                         for name, n in _build.LAUNCHES.items()
+                         if n != warm[name]}
+        _build.LAUNCHES.update(before)
+        self.graph = graph
+        RECORDER.count("decode_graph.capture")

@@ -35,6 +35,10 @@ SEED_MULT = 1_000_003
 _M32 = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 _KS_PARITY = 0x1BD11BDA
+# jax.random._uniform's bounds in float32: tiny, and 1 - tiny (which rounds
+# to 1)
+_TINY = float(np.finfo(np.float32).tiny)
+_SPAN = float(np.float32(1.0) - np.float32(_TINY))
 
 
 def seed_base(seed: int) -> int:
@@ -83,17 +87,15 @@ def random_bits(seeds, n: int):
 
 
 def gumbel(seeds, n: int):
-    """``jax.random.gumbel(PRNGKey(seed), (n,))`` per seed, float32 (B, n)."""
+    """``jax.random.gumbel(PRNGKey(seed), (n,))`` per seed, float32 (B, n).
+    Uniforms map onto ``[tiny, 1)`` through Python-float bounds, so a call
+    makes no tensor on the host and copies nothing to the device (a CUDA
+    graph can hold it)."""
     bits = random_bits(seeds, n)
     mant = ((bits >> 9) | 0x3F800000).to(torch.int32)     # [1, 2) as bits
     floats = mant.view(torch.float32) - 1.0
-    with RECORDER.sync("gumbel", n=2):
-        tiny = torch.tensor(torch.finfo(torch.float32).tiny,
-                            dtype=torch.float32, device=floats.device)
-        one = torch.tensor(1.0, dtype=torch.float32, device=floats.device)
-    span = one - tiny
-    u = torch.maximum(floats * span + tiny, tiny)
-    return -torch.log(-torch.log(u))
+    return -torch.log(-torch.log(torch.clamp(floats * _SPAN + _TINY,
+                                             min=_TINY)))
 
 
 # -- samplers -------------------------------------------------------------------

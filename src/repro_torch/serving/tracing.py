@@ -36,7 +36,9 @@ Spans (``Span``: name, t0, t1, parent index, request id, attrs):
 Counters: ``decode_calls``; ``decode_k1.prefill`` and
 ``decode_k1.batch_changed`` (a fused call dropped to K = 1 because a
 prefill was in flight, else because the batch changed); ``syncs.<site>``
-(blocking transfers).
+(blocking transfers); ``decode_graph.replay`` (fused decode steps replayed
+as a CUDA graph), ``decode_graph.eager`` (fused decode steps issued op by
+op, on every other path) and ``decode_graph.capture`` (graphs captured).
 """
 from __future__ import annotations
 

@@ -14,6 +14,7 @@ import torch
 
 from repro.serving import sampler as jax_sampler
 from repro_torch.serving import sampler
+from repro_torch.serving.tracing import RECORDER
 
 SEEDS = np.random.default_rng(0).integers(0, sampler.SEED_MOD, size=48)
 
@@ -43,6 +44,39 @@ def test_gumbel_matches_jax():
         ref = np.asarray(jax.random.gumbel(jax.random.PRNGKey(int(s)),
                                            (1000,)))
         np.testing.assert_allclose(row, ref, rtol=1e-6, atol=1e-6)
+
+
+def _gumbel_with_tensor_bounds(seeds, n):
+    """The gumbel formula with its uniform bounds as 0-d float32 tensors
+    made on the seeds' device, as the sampler once built them on every
+    call."""
+    bits = sampler.random_bits(seeds, n)
+    floats = ((bits >> 9) | 0x3F800000).to(torch.int32).view(
+        torch.float32) - 1.0
+    tiny = torch.tensor(torch.finfo(torch.float32).tiny, dtype=torch.float32,
+                        device=floats.device)
+    one = torch.tensor(1.0, dtype=torch.float32, device=floats.device)
+    u = torch.maximum(floats * (one - tiny) + tiny, tiny)
+    return -torch.log(-torch.log(u))
+
+
+@pytest.mark.parametrize("n", [1, 1000, 32064])
+def test_gumbel_is_the_tensor_bound_formula_bit_for_bit_and_copies_nothing(n):
+    seeds = torch.from_numpy(np.concatenate([[0, 1, sampler.SEED_MOD - 1],
+                                             SEEDS]))
+    RECORDER.enable()
+    RECORDER.refresh()
+    try:
+        got = sampler.gumbel(seeds, n)
+        spans, counters = list(RECORDER.spans), dict(RECORDER.counters)
+    finally:
+        RECORDER.disable()
+        RECORDER.refresh()
+        RECORDER.clear()
+    want = _gumbel_with_tensor_bounds(seeds, n)
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert spans == [] and counters == {}
 
 
 def test_seed_fold_matches_jax_including_uint32_wrap():

@@ -202,7 +202,7 @@ def test_one_queue_span_per_admission(lm):
 SITES = {
     "paged": ({}, None, {"put.chunk", "put.tables",
                          "upload_state", "to_host", "first_token",
-                         "sample_params", "gumbel"}),
+                         "sample_params"}),
     "slots": ({"backend": "slots", "enable_prefix_cache": False,
                "num_pages": None}, None,
               {"put.chunk", "upload_state", "to_host"}),
