@@ -18,11 +18,11 @@ The numbers compared, each beside its limit:
 """
 from __future__ import annotations
 
-import importlib
 import random
 
 import torch
 
+from harness import spec
 from harness.traffic import stable_seed
 
 
@@ -54,7 +54,7 @@ def served_gaps(family: str, params, m: dict, seqs, precision="float32"):
     gap of each served token below the reference's best logit at its
     position; with ``precision`` other than float32, also the gap of the
     token that precision puts first (the control's reading)."""
-    ref = importlib.import_module(f"reference.{family}")
+    ref = spec.reference(family)
     feed = [(p + s[:-1], len(p) - 1) for p, s in seqs]
     exact = ref.logits(params, m, feed)
     if precision == "float32":

@@ -1,8 +1,11 @@
 """Finds a cell's pieces by the names ``BENCHMARK.json`` gives: the
-configuration's file, the traffic mix (``traffic/<mix>.json``), the reader
-of each per-layer metric (``metrics/<metric>.py``) and the family's
-reference (``reference/<family>.py``). Adding one of these is adding a file
-and an entry, never an edit here."""
+configuration's file, the traffic mix (``traffic/<mix>.json``), the
+correctness limits (``correct/<cell>.json``), the reader of each per-layer
+metric (``metrics/<metric>.py``), and by the family a configuration names,
+the family's weights and work counts (``families/<family>.py``) and its
+plain reference (``reference/<family>.py``). The CPU tests find each cell's
+small version by its name too (``small/<cell>.json``). Adding one of these
+is adding a file and an entry, never an edit here."""
 from __future__ import annotations
 
 import importlib.util
@@ -46,11 +49,46 @@ def metrics_for(bench: dict, cell_name: str, trace: bool) -> list[dict]:
             or ("workloads" not in e and e["moves"] in moved)]
 
 
-def reader(name: str, base: Path = HERE):
-    """The module of ``metrics/<name>.py``."""
-    path = base / "metrics" / f"{name}.py"
+def _module(path: Path, prefix: str):
     spec = importlib.util.spec_from_file_location(
-        "portbench_metric_" + name.replace(".", "_").replace("-", "_"), path)
+        prefix + path.stem.replace(".", "_").replace("-", "_"), path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def reader(name: str, base: Path = HERE):
+    """The module of ``metrics/<name>.py``."""
+    return _module(base / "metrics" / f"{name}.py", "portbench_metric_")
+
+
+# loaded once: the work counts ask for the family at every decode iteration
+_LOADED: dict = {}
+
+
+def _by_family(sub: str, name: str):
+    path = HERE / sub / f"{name}.py"
+    if path not in _LOADED:
+        if not path.is_file():
+            have = sorted(p.stem for p in (HERE / sub).glob("*.py")
+                          if p.stem not in ("__init__", "common"))
+            raise ValueError(f"no {sub}/{name}.py for family {name!r}; "
+                             f"families with one: {have}")
+        _LOADED[path] = _module(path, f"portbench_{sub}_")
+    return _LOADED[path]
+
+
+def family(name: str):
+    """The module of ``families/<name>.py``: ``draw(dr, m, dt)``, the
+    parameter tree; the work counts that follow the family's layers,
+    ``token_matmul_flops(m)``, ``attn_flops(m, start, n)`` and
+    ``kv_bytes_per_position(m)``; ``SMALL``, its tiny float32 ``model``
+    section for the CPU tests. Families and references are found beside
+    the harness, in its own ``portbench/``."""
+    return _by_family("families", name)
+
+
+def reference(name: str):
+    """The module of ``reference/<name>.py``: ``logits(params, m, seqs,
+    precision)``, the family's plain reference."""
+    return _by_family("reference", name)

@@ -79,16 +79,26 @@ def _lengths(spec: dict, rng: random.Random, n: int) -> list[int]:
 
 
 def arrival_times(arr: dict, rng: random.Random, horizon: float) -> list[float]:
-    """Due times in [0, horizon) of Poisson arrivals (``kind`` ``poisson``)
-    at ``rate`` a second."""
-    if arr["kind"] != "poisson":
+    """Due times in [0, horizon) of Poisson arrivals at ``rate`` a second:
+    throughout (``kind`` ``poisson``), or in on phases of ``on_s`` seconds
+    that alternate with off phases of ``off_s`` seconds with none, the first
+    on phase from 0 (``onoff``). The Poisson process runs on the on phases'
+    clock; each time is then moved past the off phases before it."""
+    if arr["kind"] == "poisson":
+        on, off = math.inf, 0.0
+    elif arr["kind"] == "onoff":
+        on, off = arr["on_s"], arr["off_s"]
+        if not on > 0 or not off >= 0:
+            raise ValueError(f"onoff needs on_s > 0 and off_s >= 0: {arr}")
+    else:
         raise ValueError(f"unknown arrival kind {arr['kind']!r}")
     out, t = [], 0.0
     while True:
         t += rng.expovariate(arr["rate"])
-        if t >= horizon:
+        due = t + t // on * off
+        if due >= horizon:
             return out
-        out.append(t)
+        out.append(due)
 
 
 def shared_prefix_lengths(mix: dict) -> list[int]:

@@ -6,14 +6,9 @@ are handed the same tensors.
 
 Scales follow the port's initialisers (fan-in for projections, the residual
 outputs divided by sqrt(2 L)); the norms' gains are drawn around 1 so that a
-norm applied without its weight shows. Two scales of the ``moe`` family are
-not the port's, so that the random model is not chaotic under rounding (the
-values decide no timing: the program's dense experts compute every expert
-whatever the router says): the embedding at unit scale (at the port's 0.02
-every branch writes into the stream at ten times the token's own vector,
-and bf16 rounding of the stream loses the token), and the router at 0.1
-(confident gates, so that a near tie between a token's second and third
-expert moves little). ``PERF.md`` gives the readings that chose them.
+norm applied without its weight shows. Each family draws its own tree
+(``families/<family>.py``, ``draw``) from the parts here, and says where
+its scales depart from the port's.
 """
 from __future__ import annotations
 
@@ -21,8 +16,7 @@ import math
 
 import torch
 
-MOE_EMBED_SCALE = 1.0
-MOE_ROUTER_SCALE = 0.1
+from harness import spec
 
 
 class _Draw:
@@ -44,7 +38,14 @@ class _Draw:
         return w.uniform_(lo, hi, generator=self.g)
 
 
-def _attn(dr, m, L, dt):
+def gain(dr: _Draw, shape, dt):
+    """A norm's weights, around 1."""
+    return dr.normal(shape, 0.1, dt, mean=1.0)
+
+
+def attn(dr: _Draw, m: dict, L: int, dt) -> dict:
+    """An attention block's projections, stacked over ``L`` layers (none
+    for ``L`` 0)."""
     d, qd = m["d_model"], m["num_heads"] * m["head_dim"]
     kvd = m["num_kv_heads"] * m["head_dim"]
     lead = (L,) if L else ()
@@ -55,25 +56,15 @@ def _attn(dr, m, L, dt):
                             1 / math.sqrt(qd * 2 * m["num_layers"]), dt)}
 
 
+def head(dr: _Draw, m: dict, dt) -> dict:
+    """The final norm and the untied head."""
+    d = m["d_model"]
+    return {"final_norm": gain(dr, (d,), dt),
+            "lm_head": dr.normal((d, m["vocab_size"]), 1 / math.sqrt(d), dt)}
+
+
 def draw(m: dict, seed: int, device) -> dict:
     """The parameter tree of the configuration ``m`` (a config file's
-    ``model`` section) for ``seed``."""
-    dr = _Draw(seed, device)
-    dt = getattr(torch, m["param_dtype"])
-    L, d, V = m["num_layers"], m["d_model"], m["vocab_size"]
-    gain = lambda *shape: dr.normal(shape, 0.1, dt, mean=1.0)   # noqa: E731
-    if m["family"] == "moe":
-        E, f = m["moe"]["num_experts"], m["d_ff"]
-        p = {"embed": dr.normal((V, d), MOE_EMBED_SCALE, dt)}
-        p["layers"] = {
-            "norm1": gain(L, d), "attn": _attn(dr, m, L, dt), "norm2": gain(L, d),
-            "moe": {"router": dr.normal((L, d, E), MOE_ROUTER_SCALE,
-                                        torch.float32),
-                    "w1": dr.normal((L, E, d, f), 1 / math.sqrt(d), dt),
-                    "w3": dr.normal((L, E, d, f), 1 / math.sqrt(d), dt),
-                    "w2": dr.normal((L, E, f, d), 1 / math.sqrt(f * 2 * L), dt)}}
-    else:
-        raise ValueError(f"no weights for family {m['family']!r}")
-    p["final_norm"] = gain(d)
-    p["lm_head"] = dr.normal((d, V), 1 / math.sqrt(d), dt)
-    return p
+    ``model`` section) for ``seed``, drawn by its family's file."""
+    return spec.family(m["family"]).draw(_Draw(seed, device), m,
+                                         getattr(torch, m["param_dtype"]))

@@ -4,9 +4,13 @@ routes them to (top-k, whatever mode the program runs its experts in), never
 from the kernels' arguments; and the chip's peaks to divide it by.
 
 A configuration's sizes are read from its file's ``model`` section (the
-port's field names).
+port's field names). What follows the family's pattern of layers (the
+weight products a token meets, which layers attend and cache) its file
+counts (``families/<family>.py``), from the per-layer counts here.
 """
 from __future__ import annotations
+
+from harness import spec
 
 # NVIDIA H100 SXM data sheet: dense bf16 tensor-core rate and HBM3 bandwidth
 PEAK_BF16_FLOPS = 989e12
@@ -14,16 +18,14 @@ PEAK_HBM_BYTES_PER_S = 3.35e12
 BF16_BYTES = 2
 
 
+def _family(m: dict):
+    return spec.family(m["family"])
+
+
 def token_matmul_flops(m: dict) -> float:
     """FLOPs of one token's weight products through the layers, with the
     routed experts only (top-k of E), without the head."""
-    d, H, KH, hd = m["d_model"], m["num_heads"], m["num_kv_heads"], m["head_dim"]
-    attn = d * H * hd * 2 + 2 * d * KH * hd
-    mlp = 3 * d * m["d_ff"]
-    if m["family"] == "moe":
-        E, k = m["moe"]["num_experts"], m["moe"]["top_k"]
-        return 2.0 * m["num_layers"] * (attn + k * mlp + d * E)
-    raise ValueError(f"no FLOP count for family {m['family']!r}")
+    return _family(m).token_matmul_flops(m)
 
 
 def head_flops(m: dict) -> float:
@@ -31,18 +33,27 @@ def head_flops(m: dict) -> float:
     return 2.0 * m["d_model"] * m["vocab_size"]
 
 
-def attn_flops(m: dict, start: int, n: int) -> float:
+def layer_attn_flops(m: dict, start: int, n: int) -> float:
     """Causal attention FLOPs (q k^T and p v) of ``n`` query tokens at
-    positions [start, start + n), each attending every position up to its
-    own, over all attention layers."""
+    positions [start, start + n) in one attention layer, each attending
+    every position up to its own."""
     keys = n * start + n * (n + 1) // 2
-    return 4.0 * m["num_heads"] * m["head_dim"] * keys * m["num_layers"]
+    return 4.0 * m["num_heads"] * m["head_dim"] * keys
+
+
+def attn_flops(m: dict, start: int, n: int) -> float:
+    """:func:`layer_attn_flops` over all the attention layers."""
+    return _family(m).attn_flops(m, start, n)
+
+
+def layer_kv_bytes(m: dict) -> int:
+    """K and V bytes of one cached position in one attention layer."""
+    return 2 * m["num_kv_heads"] * m["head_dim"] * BF16_BYTES
 
 
 def kv_bytes_per_position(m: dict) -> int:
     """K and V bytes of one cached position over all attention layers."""
-    return 2 * m["num_kv_heads"] * m["head_dim"] * BF16_BYTES \
-        * m["num_layers"]
+    return _family(m).kv_bytes_per_position(m)
 
 
 def decode_attn_bytes(m: dict, iteration) -> float:
@@ -52,8 +63,9 @@ def decode_attn_bytes(m: dict, iteration) -> float:
     positions is read once (a shared prefix once for all the sequences
     that hold it), q read once and the output written once."""
     per_pos = kv_bytes_per_position(m)
-    qo = 2 * m["num_heads"] * m["head_dim"] * BF16_BYTES \
-        * m["num_layers"]
+    # q and the output: num_heads * head_dim values each in every attention
+    # layer, as many as the FLOPs of one query on one key over 4
+    qo = attn_flops(m, 0, 1) / 4 * 2 * BF16_BYTES
     prefixes = {}
     total = 0.0
     for ctx, pid, plen in iteration:

@@ -90,6 +90,25 @@ def test_matmul_flops_count_routed_experts_only():
     assert work.head_flops(m) == 2 * d * 32064
 
 
+def test_the_cells_work_counts_as_recorded():
+    """phi3.5-moe's counts through ``families/moe.py`` equal those the
+    harness counted when the family's branch lived in ``harness/work.py``."""
+    m = model("phi3.5-moe-16of32")
+    it = [(1500, 0, 1200), (1700, 0, 1200), (2000, 3, 1800), (300, -1, 0)]
+    assert work.token_matmul_flops(m) == 6377439232.0
+    assert work.attn_flops(m, 1024, 512) == 171865800704.0
+    assert work.kv_bytes_per_position(m) == 65536
+    assert work.decode_attn_bytes(m, it) == 282853376.0
+    assert work.model_flops(m, [(0, 512), (512, 300)], [it, it[:2]], 7) \
+        == 5307392589824.0
+
+
+def test_a_family_without_a_file_is_named():
+    m = {**model("phi3.5-moe-16of32"), "family": "hybrid"}
+    with pytest.raises(ValueError, match=r"families with one: \['moe'"):
+        work.token_matmul_flops(m)
+
+
 def test_model_flops_add_prefill_decode_and_head():
     m = {"family": "moe", "num_layers": 1, "d_model": 2, "num_heads": 1,
          "num_kv_heads": 1, "head_dim": 2, "d_ff": 3, "vocab_size": 5,

@@ -28,7 +28,7 @@ def one_thread():
     torch.set_num_threads(n)
 
 CELLS = sorted({w["name"] for w in cell.spec.load_benchmark()["workloads"]}
-               & set(smallcells.CELLS))
+               & set(smallcells.names()))
 
 
 def altered_tokens(backend_cls, monkeypatch):
@@ -60,7 +60,7 @@ def lost_state(backend_cls, monkeypatch):
 @pytest.mark.parametrize("name", CELLS)
 def test_broken_path_is_not_correct(name, fault, monkeypatch):
     from repro_torch.serving import backends
-    small = smallcells.CELLS[name]
+    small = smallcells.load(name)
     cls = (backends.PagedBackend if small["engine"]["backend"] == "paged"
            else backends.SlotBackend)
     fault(cls, monkeypatch)

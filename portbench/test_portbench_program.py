@@ -1,8 +1,7 @@
 """The program's records in the harness's frame (``harness/program.py``) and
-the five readers of them, on synthetic steps, program spans and device
-activities: the alignment by matched steps, each reader's number, and the
-None of a program without the recorder, of records that match no steps and
-of a trace mapped too far from the host clock."""
+the readers of them, on synthetic steps and program spans: the alignment by
+matched steps, each reader's number, and the None of a program without the
+recorder and of records that match no steps."""
 import sys
 from collections import namedtuple
 from pathlib import Path
@@ -14,13 +13,11 @@ import pytest  # noqa: E402
 
 from harness import program, spec  # noqa: E402
 from harness.readings import Readings  # noqa: E402
-from harness.trace import DeviceTrace  # noqa: E402
 from repro_torch.serving.tracing import Recorder, Span  # noqa: E402
 
 Step = namedtuple("Step", "t0 t1")     # a harness step's span
 READERS = ("queue_wait_ms.chat", "k1_call_share.chat",
-           "host_syncs_per_step.chat", "decode_issue_ms.chat",
-           "idle_after_sync_share.chat")
+           "host_syncs_per_step.chat", "decode_issue_ms.chat")
 BASE = 5000.0          # the program's clock (s) where the harness reads 0
 LAG = 3e-6             # a program step opens this long after the harness's
 
@@ -41,15 +38,13 @@ class Fake(Recorder):
 
 
 STEPS = [(1.0, 1.1), (1.1, 1.25), (1.25, 1.4)]
-D2H = "Memcpy DtoH (Device -> Pageable)"
 
 
 def fake():
     """Three steps: the first admits r0 (queued 30 ms) and r1 (10 ms) and
     samples a first token, the second runs a K = 1 decode, the third a
     K = 8 one that blocks 10 ms on an upload; r2's queue span ends after
-    the sub-window. Each of the three device-to-host ``sync`` spans ends
-    10 us after its copy."""
+    the sub-window."""
     rec = Fake()
     s0 = rec.put("step", 1.0 + LAG, 1.1 - 1e-4)
     rec.put("queue", 0.97, 1.0 + 2e-4, rid="r0")
@@ -71,30 +66,8 @@ def fake():
     return rec
 
 
-# in the program's frame (a span put at t lies at t - LAG): busy but for
-# four gaps, 1.04999 to 1.05, 1.14999 to 1.16 and 1.35999 to 1.36, each
-# opening as the copy a sync span waits for ends, and 1.12 to 1.125,
-# opening inside a decode.issue span
-TRUE = [(1.0, 1.04998, "k"), (1.04998, 1.04999, D2H), (1.05, 1.12, "k"),
-        (1.125, 1.14998, "k"), (1.14998, 1.14999, D2H), (1.16, 1.35998, "k"),
-        (1.35998, 1.35999, D2H), (1.36, 1.4, "k")]
-
-
-def device(shift=0.0, drift=1e-3, bump=0.0, drop=()):
-    """The device trace as the harness maps it: ``TRUE`` 2 ms early and
-    drifting by ``drift`` (+ ``shift``); ``bump`` moves the second copy
-    alone; the copies at the indices ``drop`` are missing."""
-    def m(t):
-        return t - LAG - 2e-3 - drift * (t - 1.0) + shift
-    out = [(m(a), m(b), n) for a, b, n in TRUE]
-    out[4] = (out[4][0] + bump, out[4][1] + bump, D2H)
-    copies = [i for i, iv in enumerate(out) if iv[2] == D2H]
-    return DeviceTrace([iv for i, iv in enumerate(out)
-                        if i not in {copies[k] for k in drop}])
-
-
-def readings(trace=None, steps=STEPS):
-    return Readings({}, {}, [Step(a, b) for a, b in steps], {}, trace,
+def readings(steps=STEPS):
+    return Readings({}, {}, [Step(a, b) for a, b in steps], {}, None,
                     1.0, 1.4)
 
 
@@ -143,45 +116,13 @@ def test_recorder_is_none_where_the_program_has_none(monkeypatch):
     assert program.recorder() is None
 
 
-def test_copies_pair_and_remap_the_trace(with_rec):
-    with_rec(fake())
-    p = program.of(readings())
-    pairs = program.copy_pairs(p, device())
-    assert [t for _, t in pairs] == pytest.approx(
-        [1.05 - LAG, 1.15 - LAG, 1.36 - LAG], abs=1e-9)
-    assert program.alignment(pairs) == pytest.approx([0.0], abs=1e-9)
-    # the remap undoes the offset and the drift between the copies, and
-    # holds the nearest copy's offset outside them (a copy's span ends 10
-    # us after it)
-    got = program.remap(device(), pairs).intervals
-    want = [(a - LAG + 1e-5, b - LAG + 1e-5) for a, b, _ in TRUE]
-    for (a, b, _), (wa, wb) in zip(got[1:-1], want[1:-1]):
-        assert (a, b) == pytest.approx((wa, wb), abs=5e-8)
-    # a copy missing from the trace drops its pair, not the ones after it
-    pairs = program.copy_pairs(p, device(drop=[1]))
-    assert [t for _, t in pairs] == pytest.approx([1.05 - LAG, 1.36 - LAG],
-                                                  abs=1e-9)
-    # a copy off the others' line shows in the alignment
-    assert program.alignment(program.copy_pairs(p, device(bump=4e-4))) \
-        == pytest.approx([-4e-4], abs=1e-6)
-
-
-def test_interval_helpers():
-    merged = program.union([(3, 4), (1, 2), (1.5, 2.5)])
-    assert merged == [[1, 2.5], [3, 4]]
-    assert program.inside(2.5, merged) and not program.inside(2.7, merged)
-    assert not program.inside(0.5, merged)
-    assert program.overlap(1.05, 1.2, [Step(a, b) for a, b in STEPS]) \
-        == pytest.approx(0.15)
-
-
 def _read(name, r):
     return spec.reader(name).read(r)
 
 
 def test_readers_on_synthetic_records(with_rec):
     with_rec(fake())
-    r = readings(device())
+    r = readings()
     # r0 and r1 waited 30.2 and 10.3 ms; r2's span ends after the window
     assert _read("queue_wait_ms.chat", r) == pytest.approx(
         (30.2e-3 + 10.3e-3) / 2 * 1e3, abs=1e-6)
@@ -190,30 +131,13 @@ def test_readers_on_synthetic_records(with_rec):
     # the 10 ms the K = 8 issue blocked in its upload is not issue time
     assert _read("decode_issue_ms.chat", r) == pytest.approx(
         (0.02 + 0.08 - 0.01) / 9 * 1e3)
-    # of the four gaps, the three opening inside a sync span (the copy
-    # ends 10 us before its span): 10.03 ms of the steps' 0.4 s
-    assert _read("idle_after_sync_share.chat", r) == pytest.approx(
-        100 * 0.01003 / 0.4, rel=1e-4)
 
 
 @pytest.mark.parametrize("name", READERS)
 def test_readers_find_nothing_in_a_program_without_the_recorder(
         name, with_rec):
     with_rec(None)
-    assert _read(name, readings(device())) is None
-
-
-def test_idle_after_sync_needs_a_trace_it_can_align(with_rec):
-    with_rec(fake())
-    name = "idle_after_sync_share.chat"
     assert _read(name, readings()) is None
-    # the same share however the harness mapped the trace
-    assert _read(name, readings(device(shift=5e-3, drift=-2e-3))) \
-        == pytest.approx(_read(name, readings(device())), rel=1e-4)
-    # copies off their line by more than the tolerance, or too few
-    tol = spec.reader(name).TOL_S
-    assert _read(name, readings(device(bump=3 * tol))) is None
-    assert _read(name, readings(device(drop=[0]))) is None
 
 
 def test_counter_readers_find_nothing_without_decode_calls(with_rec):

@@ -6,7 +6,10 @@ from pathlib import Path
 HERE = Path(__file__).resolve().parent
 sys.path[:0] = [str(HERE), str(HERE.parent / "src")]
 
+import hashlib  # noqa: E402
 import json  # noqa: E402
+import random  # noqa: E402
+import struct  # noqa: E402
 
 import pytest  # noqa: E402
 
@@ -55,7 +58,6 @@ def test_lengths_within_the_mix(name):
 
 
 def test_poisson_arrivals_keep_their_rate():
-    import random
     due = traffic.arrival_times({"kind": "poisson", "rate": 5.0},
                                 random.Random(1), 40.0)
     assert due == sorted(due) and 0 < due[0] and due[-1] < 40.0
@@ -63,6 +65,45 @@ def test_poisson_arrivals_keep_their_rate():
     with pytest.raises(ValueError):
         traffic.arrival_times({"kind": "burst", "rate": 5.0},
                               random.Random(1), 40.0)
+
+
+def test_chat_prefix_due_times_as_recorded():
+    """``chat_prefix``'s Poisson due times are those of the generator before
+    it knew ``onoff``: the first 50, packed as float64, by their SHA-256."""
+    m = mix("chat_prefix")
+    due = traffic.arrival_times(
+        m["arrivals"], random.Random(traffic.stable_seed("sizes", m["base_seed"])),
+        48.0)
+    assert len(due) == 244
+    assert hashlib.sha256(b"".join(struct.pack("<d", t) for t in due[:50])) \
+        .hexdigest() == \
+        "770dbb7c95469c0d19ae9f5b3a4d826ce9947e9ebd20b88abff4226c23a75ed0"
+
+
+ONOFF = {"kind": "onoff", "rate": 3.0, "on_s": 8.0, "off_s": 4.0}
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_onoff_arrivals_keep_to_the_on_phases(seed):
+    """None due in an off phase, and over 48 s (four periods of 8 s on, 4
+    off) a count within four standard deviations of rate x 32 s on."""
+    due = traffic.arrival_times(ONOFF, random.Random(seed), 48.0)
+    assert due == sorted(due) and 0 < due[0] and due[-1] < 48.0
+    assert all(t % 12.0 < 8.0 for t in due)
+    mean = 3.0 * 32.0
+    assert abs(len(due) - mean) < 4 * mean ** 0.5
+
+
+def test_onoff_times_follow_the_base_seed():
+    m = {**mix("chat_prefix"), "arrivals": ONOFF}
+    a = traffic.generate(m, 11, 32000, 48.0)
+    b = traffic.generate(m, 12, 32000, 48.0)
+    assert [r.due for r in a] == [r.due for r in b]
+    c = traffic.generate({**m, "base_seed": m["base_seed"] + 1}, 11, 32000,
+                         48.0)
+    assert [r.due for r in a] != [r.due for r in c]
+    with pytest.raises(ValueError):
+        traffic.arrival_times({**ONOFF, "on_s": 0.0}, random.Random(1), 48.0)
 
 
 def test_shared_prefixes_and_warmup():
