@@ -670,20 +670,20 @@ def print_times(results):
               f"{r['flops'] / r['device_ms'] / 1e9:.1f} TFLOP/s")
 
 
-def ssd_bound(b, s, h, p, n, Q, elem):
-    """(least ms, 'bytes' | 'operations', operations) of one SSD scan: each
-    input and output once at the HBM rate, or the products these inputs
-    need at the bf16 tensor-core rate -- C B^T once per chunk (it is shared
-    by the heads), and per head the weighted product with x, the state term of
-    every chunk after the first (the first enters with a zero state) and
-    the state update."""
-    nbytes = b * s * h * p * elem * 2 + b * s * h * 4 + 2 * b * s * n * elem \
-        + b * h * p * n * 4
+def ssd_bound(b, s, h, p, n, Q, elem, g=1):
+    """(least ms, 'bytes' | 'operations', operations) of one SSD scan with
+    ``g`` groups of B and C: each input and output once at the HBM rate, or
+    the products these inputs need at the bf16 tensor-core rate -- C B^T
+    once per chunk and group (it is shared by the group's heads), and per
+    head the weighted product with x, the state term of every chunk after
+    the first (the first enters with a zero state) and the state update."""
+    nbytes = b * s * h * p * elem * 2 + b * s * h * 4 \
+        + 2 * b * s * g * n * elem + b * h * p * n * 4
     flops = 0
     for c0 in range(0, s, Q):
         q = min(Q, s - c0)
         tri = q * (q + 1) // 2
-        flops += b * tri * n * 2
+        flops += b * tri * n * 2 * g
         flops += b * h * (tri * p * 2 + q * p * n * 2
                           + (q * n * p * 2 if c0 else 0))
     t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
@@ -822,7 +822,8 @@ def flash_bound(B, S, H, KH, D, window, seq_k, elem, causal=True):
 def run_hybrid_kernel_checks(torch, dev):
     """The two kernels of the slot engine's prefill against their plain
     versions at zamba2-2.7b's and mamba2-130m's shapes and the edge cases,
-    then their times at zamba2-2.7b's prefill of a 2048-token prompt."""
+    then their times at zamba2-2.7b's and Zamba2-7B's prefill of a
+    2048-token prompt (the latter: 2 groups of B and C, heads of 224)."""
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.flash_attention.ref import attention_ref
     from repro_torch.kernels.ssd.ops import ssd
@@ -844,12 +845,17 @@ def run_hybrid_kernel_checks(torch, dev):
               "version")
         return absd
 
-    # -- SSD: B and C are column views of the conv output, as on the path --
-    def ssd_case(b, s, h, p, n, dtype):
+    # -- SSD: B and C are column views of the conv output, as on the path;
+    # with g > 1 groups, (b, s, g, n) views of it --
+    def ssd_case(b, s, h, p, n, dtype, g=0):
         x = K.randn(b, s, h, p, dtype=dtype)
         a = -torch.rand(b, s, h, generator=K.gen, device=dev) * 0.5
-        xbc = K.randn(b, s, h * p + 2 * n, dtype=dtype)
-        return x, a, xbc[..., h * p:h * p + n], xbc[..., h * p + n:]
+        gn = max(g, 1) * n
+        xbc = K.randn(b, s, h * p + 2 * gn, dtype=dtype)
+        B, C = xbc[..., h * p:h * p + gn], xbc[..., h * p + gn:]
+        if g:
+            B, C = B.unflatten(-1, (g, n)), C.unflatten(-1, (g, n))
+        return x, a, B, C
 
     scases = [
         (dict(b=1, s=2048, h=80, p=64, n=64, dtype=f32),
@@ -873,6 +879,15 @@ def run_hybrid_kernel_checks(torch, dev):
          "s=4096: 16 chunks, bf16"),
         (dict(b=2, s=1000, h=80, p=64, n=64, dtype=bf16),
          "b=2 s=1000 n=64, bf16"),
+        # Zamba2-7B's mixer: 112 heads reading 2 groups of B and C
+        (dict(b=1, s=2048, h=112, p=64, n=64, dtype=bf16, g=2),
+         "zamba2-7b g=2 s=2048, bf16"),
+        (dict(b=1, s=2048, h=112, p=64, n=64, dtype=f32, g=2),
+         "zamba2-7b g=2 s=2048, f32"),
+        (dict(b=1, s=777, h=112, p=64, n=64, dtype=bf16, g=2),
+         "zamba2-7b g=2 s=777 ragged, bf16"),
+        (dict(b=2, s=300, h=24, p=64, n=128, dtype=bf16, g=3),
+         "g=3 b=2 s=300 n=128, bf16"),
     ]
     print("  (SSD: y against ssd_chunked by dtype; final state within "
           f"{SSD_STATE_TOL} of its scale)")
@@ -912,6 +927,17 @@ def run_hybrid_kernel_checks(torch, dev):
           "(device time)")
     results["ssd"]["sass"] = ssd_sass()
     del sm, y, yr, yc
+    # Zamba2-7B's prefill of a 2048-token prompt: x (1, 2048, 112, 64), B
+    # and C (1, 2048, 2, 64)
+    sz = ssd_case(1, 2048, 112, 64, 64, bf16, g=2)
+    y, st = ssd(*sz, 256)
+    yr, str_ = ssd_chunked(*sz, 256)
+    err_z = compare("ssd", y, yr, bf16, "main: zamba2-7b g=2 s=2048, bf16")
+    b_z, by_z, f_z = ssd_bound(1, 2048, 112, 64, 64, 256, 2, g=2)
+    results["ssd zamba2-7b"] = dict(
+        max_abs_err=err_z, bound_ms=b_z, bound_by=by_z, flops=f_z,
+        **K.timings(lambda: ssd(*sz, 256), lambda: ssd_chunked(*sz, 256)))
+    del sz, y, yr
     torch.cuda.synchronize()
 
     # -- dense flash attention, Sq == Sk (start- and end-aligned agree) --
@@ -963,6 +989,29 @@ def run_hybrid_kernel_checks(torch, dev):
                               kv_len=seq_k),
                 kw["dtype"], label)
         del q, k, v, out
+    # Zamba2-7B's shared attention: 32 heads of 224 at scale (224/2)^-0.5,
+    # against the plain version at that scale
+    zscale = 112 ** -0.5
+    zcases = [
+        (dict(B=1, S=2048, H=32, KH=32, D=224, dtype=bf16), 0, None,
+         "zamba2-7b D=224 S=2048 scale, bf16"),
+        (dict(B=1, S=333, H=32, KH=32, D=224, dtype=f32), 0, 300,
+         "zamba2-7b D=224 S=333 seq_k=300 scale, f32"),
+        (dict(B=2, S=777, H=8, KH=4, D=224, dtype=bf16), 100, None,
+         "D=224 G=2 B=2 S=777 window 100 scale, bf16"),
+    ]
+    for kw, window, seq_k, label in zcases:
+        q, k, v = flash_case(**kw)
+        out = flash_attention(q, k, v, window=window, seq_k=seq_k,
+                              scale=zscale)
+        compare("flash_attention", out,
+                chunked_attention(q, k, v, window=window, kv_len=seq_k,
+                                  scale=zscale), kw["dtype"], label)
+        del q, k, v, out
+    q, k, v = flash_case(1, 1024, 32, 32, 224, bf16)
+    compare("flash_attention", flash_attention(q, k, v),
+            attention_ref(q, k, v), bf16, "D=224 S=1024 default scale, bf16")
+    del q, k, v
     fm = flash_case(1, 2048, 32, 32, 80, bf16)
     out = flash_attention(*fm)
     err_fa = compare("flash_attention", out, attention_ref(*fm), bf16,
@@ -977,6 +1026,22 @@ def run_hybrid_kernel_checks(torch, dev):
                     lambda: chunked_attention(*fm),
                     lambda: F.scaled_dot_product_attention(
                         qt, kt, vt, is_causal=True)))
+    # -- Zamba2-7B's one-shot prefill of a 2048-token prompt: (1, 2048, 32,
+    # 224), causal, scale (224/2)^-0.5 --
+    zm = flash_case(1, 2048, 32, 32, 224, bf16)
+    err_z = compare("flash_attention",
+                    flash_attention(*zm, scale=zscale),
+                    chunked_attention(*zm, scale=zscale), bf16,
+                    "main: zamba2-7b S=2048 D=224, bf16")
+    zt = [t.transpose(1, 2).contiguous() for t in zm]
+    b_z, by_z, f_z = flash_bound(1, 2048, 32, 32, 224, 0, 2048, 2)
+    results["flash_attention zamba2-7b"] = dict(
+        max_abs_err=err_z, bound_ms=b_z, bound_by=by_z, flops=f_z,
+        **K.timings(lambda: flash_attention(*zm, scale=zscale),
+                    lambda: chunked_attention(*zm, scale=zscale),
+                    lambda: F.scaled_dot_product_attention(
+                        *zt, is_causal=True, scale=zscale)))
+    del zm, zt
     # -- hubert-xlarge's encoder attention (phase 6): non-causal, G = 1,
     # D = 80, a padded batch of 8 sequences of 512 frames --
     hm = flash_case(8, 512, 16, 16, 80, bf16)

@@ -24,12 +24,15 @@ class SSMConfig:
     expand: int = 2
     conv_kernel: int = 4
     chunk: int = 256
+    # groups of B and C: head h reads group h // (heads / n_groups), and the
+    # gated norm is taken over each group's d_inner / n_groups columns
+    n_groups: int = 1
 
 
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                  # dense | moe | ssm | hybrid | vlm | audio
+    family: str                  # dense | moe | ssm | hybrid (zamba2) | vlm | audio
     num_layers: int
     d_model: int
     num_heads: int
@@ -52,6 +55,28 @@ class ModelConfig:
     sliding_window_long: int = 4096
     param_dtype: str = "bfloat16"
     source: str = ""             # provenance tag from the assignment table
+    # hybrid, the published Zamba2 block (ids given; ``attn_every`` unused):
+    # before the mamba layer at each id, one of ``num_mem_blocks`` tied
+    # attention + gated-GELU MLP blocks (alternating) reads the stream
+    # concatenated with the token embeddings (width 2 d_model, heads of
+    # head_dim over it, rotate-half RoPE, scale (head_dim / 2)^-0.5); its
+    # output, through the application's own linear, is added to that
+    # layer's input and not to the stream
+    hybrid_layer_ids: tuple = ()
+    num_mem_blocks: int = 1
+    adapter_rank: int = 0        # rank of each application's gate_up adapter
+
+    def __post_init__(self):
+        # a JSON list becomes a tuple, so the config stays hashable
+        object.__setattr__(self, "hybrid_layer_ids",
+                           tuple(self.hybrid_layer_ids))
+        # ``zamba2`` names the hybrid family at the published layout (the
+        # name portbench files its weights, work counts and reference under);
+        # the port runs it as ``hybrid``
+        if self.family == "zamba2":
+            if not self.hybrid_layer_ids:
+                raise ValueError("family 'zamba2' needs hybrid_layer_ids")
+            object.__setattr__(self, "family", "hybrid")
 
     # ---- derived ----
     @property
@@ -61,6 +86,18 @@ class ModelConfig:
     @property
     def kv_dim(self) -> int:
         return self.num_kv_heads * self.head_dim
+
+    @property
+    def rope_half(self) -> bool:
+        """RoPE rotates (i, i + D/2) (the published Zamba2 block), not
+        interleaved pairs."""
+        return bool(self.hybrid_layer_ids)
+
+    @property
+    def attn_scale(self) -> float | None:
+        """The softmax scale where it is not 1 / sqrt(head_dim): the
+        published Zamba2 block's (head_dim / 2)^-0.5."""
+        return (self.head_dim / 2) ** -0.5 if self.hybrid_layer_ids else None
 
     @property
     def d_inner(self) -> int:
@@ -78,6 +115,8 @@ class ModelConfig:
         if self.family == "ssm":
             return 0
         if self.family == "hybrid":
+            if self.hybrid_layer_ids:
+                return len(self.hybrid_layer_ids)
             return self.num_layers // self.attn_every
         return self.num_layers
 
@@ -109,6 +148,22 @@ class ModelConfig:
             n_layers_attn = self.num_layers
             router = d * self.moe.num_experts
             expert_total = self.num_layers * (self.moe.num_experts * per_mlp + router)
+        elif self.hybrid_layer_ids:
+            di, gn = self.d_inner, self.ssm.n_groups * self.ssm.d_state
+            h, ch = self.ssm_heads, self.d_inner + 2 * gn
+            # in_proj, conv weight and bias, A_log / D / dt_bias, the gated
+            # norm, out_proj, the layer's norm (as ``hybrid.init_params``)
+            per_ssm = (d * (2 * di + 2 * gn + h) + ch * (self.ssm.conv_kernel
+                                                         + 1)
+                       + 3 * h + di + di * d + d)
+            ssm_total = self.num_layers * per_ssm
+            # the tied blocks: norms of 2d and d, attention over 2d, the
+            # gated MLP; per application its adapter and its linear
+            per_block = (2 * d * self.q_dim + 2 * 2 * d * self.kv_dim
+                         + self.q_dim * d + 3 * d * f + 3 * d)
+            per_app = self.adapter_rank * (d + 2 * f) + d * d
+            ssm_total += (self.num_mem_blocks * per_block
+                          + len(self.hybrid_layer_ids) * per_app)
         elif self.family in ("ssm", "hybrid"):
             di, n = self.d_inner, self.ssm.d_state
             h = self.ssm_heads

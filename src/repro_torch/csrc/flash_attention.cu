@@ -9,7 +9,8 @@
 // heads of a token; positions are start-aligned as in the TPU kernel: row r
 // sits at position r / G, key j at position j. Key j is visible to a row at
 // qpos when j < seq_k, and j <= qpos if causal, and qpos - j < window if
-// window > 0. Scores in fp32 scaled by 1/sqrt(D); online softmax in fp32;
+// window > 0. Scores in fp32 scaled by the caller's scale (1/sqrt(D) when it
+// passes 0); online softmax in fp32;
 // output acc / max(l, 1e-30) in the input dtype, so a row with no visible
 // key is zeros. q is read and the output written in their (B, Sq, H, D)
 // layout: no fold copies on either side.
@@ -40,7 +41,10 @@
 // against bank conflicts); each thread owns 4 query rows x 4 key columns of
 // the score tile and 4 rows x D/8 columns of the output, with the row max
 // and row sum reduced over the 8 lanes that share a row. Head dims 64, 80
-// (zamba2) and 128 are instantiated for both dtypes.
+// (zamba2-2.7b), 128 and 224 (Zamba2-7B's shared attention: heads of 224
+// over the 7168-wide concatenation at scale (224/2)^-0.5; its tiles take
+// four 64-column blocks, the last one half filled) are instantiated for
+// both dtypes.
 //
 // Launches on the caller's stream, allocates nothing, does not synchronise.
 // The entry returns cudaGetLastError() after the launch.
@@ -287,7 +291,7 @@ int allow_smem(F* kernel, size_t bytes, bool& done) {
 template <int D>
 int launch_f32(const void* q, const void* k, const void* v, void* out, int B,
                int Sq, int Sk, int KH, int G, int seq_k, int causal,
-               int window, cudaStream_t stream) {
+               int window, float scale, cudaStream_t stream) {
   constexpr size_t bytes = smem_bytes<D>();
   static bool attr_set = false;
   if (int e = allow_smem(flash_kernel<D>, bytes, attr_set)) return e;
@@ -295,14 +299,14 @@ int launch_f32(const void* q, const void* k, const void* v, void* out, int B,
   flash_kernel<D><<<grid, kThreads, bytes, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(out), Sq, Sk, KH, G,
-      seq_k, causal, window, 1.0f / sqrtf((float)D));
+      seq_k, causal, window, scale > 0.f ? scale : 1.0f / sqrtf((float)D));
   return (int)cudaGetLastError();
 }
 
 template <int D>
 int launch_bf16(const void* q, const void* k, const void* v, void* out,
                 int B, int Sq, int Sk, int KH, int G, int seq_k, int causal,
-                int window, cudaStream_t stream) {
+                int window, float scale, cudaStream_t stream) {
   constexpr size_t bytes = attn_tc::smem_bytes<D>();
   static bool attr_set = false;
   if (int e = allow_smem(flash_tc_kernel<D>, bytes, attr_set)) return e;
@@ -313,7 +317,8 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out,
   flash_tc_kernel<D><<<grid, attn_tc::kThreads, bytes, stream>>>(
       kmap, vmap, static_cast<const __nv_bfloat16*>(q),
       static_cast<__nv_bfloat16*>(out), Sq, KH, G, seq_k, causal, window,
-      1.4426950408889634f / sqrtf((float)D));
+      scale > 0.f ? 1.4426950408889634f * scale
+                  : 1.4426950408889634f / sqrtf((float)D));
   return (int)cudaGetLastError();
 }
 
@@ -321,23 +326,26 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out,
 
 // dtype: 0 = float32, 1 = bfloat16. q/out: (B, Sq, KH*G, D); k, v:
 // (B, Sk, KH, D); all contiguous. seq_k <= Sk keys are valid; window 0 means
-// unlimited; causal 0 or 1.
+// unlimited; causal 0 or 1; scale the softmax scale, 0 for 1/sqrt(D).
 extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, void* out, int B, int Sq,
                                    int Sk, int KH, int G, int D, int seq_k,
                                    int causal, int window, int dtype,
-                                   void* stream) {
+                                   float scale, void* stream) {
   if (B <= 0 || Sq <= 0 || Sk <= 0 || KH <= 0 || G <= 0 || seq_k < 0 ||
-      seq_k > Sk || window < 0)
+      seq_k > Sk || window < 0 || !(scale >= 0.f))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define FLASH_ARGS q, k, v, out, B, Sq, Sk, KH, G, seq_k, causal, window, s
+#define FLASH_ARGS \
+  q, k, v, out, B, Sq, Sk, KH, G, seq_k, causal, window, scale, s
   if (dtype == 0 && D == 64) return launch_f32<64>(FLASH_ARGS);
   if (dtype == 0 && D == 80) return launch_f32<80>(FLASH_ARGS);
   if (dtype == 0 && D == 128) return launch_f32<128>(FLASH_ARGS);
+  if (dtype == 0 && D == 224) return launch_f32<224>(FLASH_ARGS);
   if (dtype == 1 && D == 64) return launch_bf16<64>(FLASH_ARGS);
   if (dtype == 1 && D == 80) return launch_bf16<80>(FLASH_ARGS);
   if (dtype == 1 && D == 128) return launch_bf16<128>(FLASH_ARGS);
+  if (dtype == 1 && D == 224) return launch_bf16<224>(FLASH_ARGS);
 #undef FLASH_ARGS
   return (int)cudaErrorInvalidValue;
 }

@@ -5,8 +5,9 @@
 //
 // What it computes (the contract of models.mamba2.ssd_chunked with h0 = 0).
 // x: (b, s, h, p) already multiplied by dt, in the model dtype; a: (b, s, h)
-// float32 log decay (<= 0); B, C: (b, s, n), one group shared by every head,
-// row stride given (they are column slices of the conv output). For each
+// float32 log decay (<= 0); B, C: (b, s, g, n), g groups, head i reading
+// group i / (h / g) (g = 1: one group shared by every head), strides given
+// (they are column slices of the conv output). For each
 // chunk of Q = min(chunk, s) positions, with acs = the chunk's inclusive
 // cumulative sum of a:
 //   y_i   = sum_{j<=i} (C_i . B_j) exp(acs_i - acs_j) x_j
@@ -102,11 +103,12 @@ template <int P, int N>
 __global__ void __launch_bounds__(kFmaThreads) ssd_fma_kernel(
     const float* __restrict__ x,      // (b, s, h, P)
     const float* __restrict__ a,      // (b, s, h)
-    const float* __restrict__ Bm,     // (b, s, N), strides (bc_b, bc_s, 1)
-    const float* __restrict__ Cm,
+    const float* __restrict__ Bm,     // (b, s, g, N), strides (bc_b, bc_s,
+    const float* __restrict__ Cm,     // bc_g, 1)
     float* __restrict__ y,            // (b, s, h, P)
     float* __restrict__ final_state,  // (b, h, P, N)
-    int S, int H, int Q, long long bc_b, long long bc_s) {
+    int S, int H, int Q, long long bc_b, long long bc_s, int hpg,
+    long long bc_g) {
   constexpr int NP = N + 1;
   constexpr int TP = kT + 1;
   constexpr int PC = P / 16;          // y columns / state rows per thread
@@ -128,8 +130,8 @@ __global__ void __launch_bounds__(kFmaThreads) ssd_fma_kernel(
   const float* xb = x + (size_t)b * S * xrow + (size_t)h * P;
   float* yb = y + (size_t)b * S * xrow + (size_t)h * P;
   const float* ab = a + (size_t)b * S * H + h;
-  const float* Bb = Bm + (size_t)b * bc_b;
-  const float* Cb = Cm + (size_t)b * bc_b;
+  const float* Bb = Bm + (size_t)b * bc_b + (size_t)(h / hpg) * bc_g;
+  const float* Cb = Cm + (size_t)b * bc_b + (size_t)(h / hpg) * bc_g;
 
   for (int e = tid; e < P * NP; e += kFmaThreads) st[e] = 0.f;
 
@@ -314,7 +316,7 @@ __global__ void __launch_bounds__(kFmaThreads) ssd_fma_kernel(
 template <int P, int N>
 int launch_fma(const void* x, const float* a, const void* B, const void* C,
                void* y, float* fs, int b, int S, int H, int Q, long long bc_b,
-               long long bc_s, cudaStream_t stream) {
+               long long bc_s, int hpg, long long bc_g, cudaStream_t stream) {
   constexpr size_t bytes = fma_smem_bytes<P, N>();
   static bool attr_set = false;   // per instantiation, first launch only
   if (!attr_set) {
@@ -328,7 +330,7 @@ int launch_fma(const void* x, const float* a, const void* B, const void* C,
   ssd_fma_kernel<P, N><<<grid, kFmaThreads, bytes, stream>>>(
       static_cast<const float*>(x), a, static_cast<const float*>(B),
       static_cast<const float*>(C), static_cast<float*>(y), fs, S, H, Q, bc_b,
-      bc_s);
+      bc_s, hpg, bc_g);
   return (int)cudaGetLastError();
 }
 
@@ -424,7 +426,7 @@ __global__ void __launch_bounds__(kWG) ssd_chunk_state_kernel(
     const bf16* __restrict__ x, const float* __restrict__ a,
     const bf16* __restrict__ Bm, float* __restrict__ states,
     float* __restrict__ acs_out, int S, int H, int Q, long long bc_b,
-    long long bc_s) {
+    long long bc_s, int hpg, long long bc_g) {
   constexpr int TB = tile_bytes<N>();
   constexpr int CPR = N / 8;               // 16-byte chunks of a B row
   extern __shared__ uint8_t smem_raw[];
@@ -444,7 +446,8 @@ __global__ void __launch_bounds__(kWG) ssd_chunk_state_kernel(
   const int ntq = (Q + kTile - 1) / kTile;
   const size_t xrow = (size_t)H * kP;
   const bf16* xb = x + ((size_t)b * S + c0) * xrow + (size_t)h * kP;
-  const bf16* Bb = Bm + (size_t)b * bc_b + c0 * bc_s;
+  const bf16* Bb =
+      Bm + (size_t)b * bc_b + c0 * bc_s + (size_t)(h / hpg) * bc_g;
 
   // one copy group per 64-row tile of the chunk (those past it empty);
   // rows past qv are zero-filled
@@ -573,7 +576,7 @@ __global__ void __launch_bounds__(kWG) ssd_chunk_scan_kernel(
     const bf16* __restrict__ x, const bf16* __restrict__ Bm,
     const bf16* __restrict__ Cm, bf16* __restrict__ y,
     const float* __restrict__ acs_in, const bf16* __restrict__ prev, int S,
-    int H, int Q, long long bc_b, long long bc_s) {
+    int H, int Q, long long bc_b, long long bc_s, int hpg, long long bc_g) {
   constexpr int TB = tile_bytes<N>();
   constexpr int XB = tc::kBlockBytes;    // an x tile: 64 rows x kP
   constexpr int KS = N / 16;             // k-steps over the state dim
@@ -598,8 +601,9 @@ __global__ void __launch_bounds__(kWG) ssd_chunk_scan_kernel(
   const int iA = i0 + warp * 16 + (lane >> 2), iB = iA + 8;
   const size_t xrow = (size_t)H * kP;
   const bf16* xb = x + ((size_t)b * S + c0) * xrow + (size_t)h * kP;
-  const bf16* Bb = Bm + (size_t)b * bc_b + c0 * bc_s;
-  const bf16* Cb = Cm + (size_t)b * bc_b + c0 * bc_s;
+  const size_t goff = (size_t)(h / hpg) * bc_g;   // the head's group
+  const bf16* Bb = Bm + (size_t)b * bc_b + c0 * bc_s + goff;
+  const bf16* Cb = Cm + (size_t)b * bc_b + c0 * bc_s + goff;
   const size_t bhc = ((size_t)b * H + h) * nc + c;
 
   // key tile jt's B rows and x rows into ring stage jt % 2
@@ -757,7 +761,8 @@ __global__ void __launch_bounds__(kWG) ssd_chunk_scan_kernel(
 template <int N>
 int launch_tc(const void* x, const float* a, const void* B, const void* C,
               void* y, float* fs, void* workspace, int b, int S, int H, int Q,
-              long long bc_b, long long bc_s, cudaStream_t stream) {
+              long long bc_b, long long bc_s, int hpg, long long bc_g,
+              cudaStream_t stream) {
   static bool attr_set = false;   // per instantiation, first launch only
   if (!attr_set) {
     cudaError_t e = cudaFuncSetAttribute(
@@ -779,7 +784,7 @@ int launch_tc(const void* x, const float* a, const void* B, const void* C,
   const bf16* xp = static_cast<const bf16*>(x);
   const bf16* Bp = static_cast<const bf16*>(B);
   ssd_chunk_state_kernel<N><<<g.grid[0], g.threads[0], g.smem[0], stream>>>(
-      xp, a, Bp, states, acs, S, H, Q, bc_b, bc_s);
+      xp, a, Bp, states, acs, S, H, Q, bc_b, bc_s, hpg, bc_g);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   ssd_state_pass_kernel<<<g.grid[1], g.threads[1], 0, stream>>>(
@@ -788,7 +793,7 @@ int launch_tc(const void* x, const float* a, const void* B, const void* C,
   if (e != cudaSuccess) return (int)e;
   ssd_chunk_scan_kernel<N><<<g.grid[2], g.threads[2], g.smem[2], stream>>>(
       xp, Bp, static_cast<const bf16*>(C), static_cast<bf16*>(y), acs, prev, S,
-      H, Q, bc_b, bc_s);
+      H, Q, bc_b, bc_s, hpg, bc_g);
   return (int)cudaGetLastError();
 }
 
@@ -800,27 +805,30 @@ bool valid(int b, int S, int H, int P, int N, int Q, int dtype) {
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (x, B, C and y). x, y: (b, S, H, P)
-// contiguous; a: (b, S, H) float32 contiguous; B, C: (b, S, N) with element
-// strides (bc_b, bc_s, 1); final_state: (b, H, P, N) float32. Q <= 256,
-// P = 64, N = 64 or 128. bf16 needs 16-byte aligned x, B and C rows and a
-// workspace of ssd_workspace_bytes(); float32 takes none (may be null).
+// contiguous; a: (b, S, H) float32 contiguous; B, C: (b, S, G, N) with
+// element strides (bc_b, bc_s, bc_g, 1), H a multiple of G, head h reading
+// group h / (H / G); final_state: (b, H, P, N) float32. Q <= 256, P = 64,
+// N = 64 or 128. bf16 needs 16-byte aligned x, B and C rows and a workspace
+// of ssd_workspace_bytes(); float32 takes none (may be null).
 extern "C" int ssd_fwd(const void* x, const float* a, const void* B,
                        const void* C, void* y, float* final_state,
                        void* workspace, int b, int S, int H, int P, int N,
-                       int Q, int bc_b, int bc_s, int dtype, void* stream) {
-  if (!valid(b, S, H, P, N, Q, dtype) || bc_b < 0 || bc_s < 0 ||
-      (dtype == 1 && workspace == nullptr))
+                       int Q, int bc_b, int bc_s, int G, int bc_g, int dtype,
+                       void* stream) {
+  if (!valid(b, S, H, P, N, Q, dtype) || bc_b < 0 || bc_s < 0 || G <= 0 ||
+      H % G || bc_g < 0 || (dtype == 1 && workspace == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int hpg = H / G;
   if (dtype == 0)
     return N == 64 ? launch_fma<64, 64>(x, a, B, C, y, final_state, b, S, H,
-                                        Q, bc_b, bc_s, s)
+                                        Q, bc_b, bc_s, hpg, bc_g, s)
                    : launch_fma<64, 128>(x, a, B, C, y, final_state, b, S, H,
-                                         Q, bc_b, bc_s, s);
+                                         Q, bc_b, bc_s, hpg, bc_g, s);
   return N == 64 ? launch_tc<64>(x, a, B, C, y, final_state, workspace, b, S,
-                                 H, Q, bc_b, bc_s, s)
+                                 H, Q, bc_b, bc_s, hpg, bc_g, s)
                  : launch_tc<128>(x, a, B, C, y, final_state, workspace, b, S,
-                                  H, Q, bc_b, bc_s, s);
+                                  H, Q, bc_b, bc_s, hpg, bc_g, s);
 }
 
 // bytes of workspace ssd_fwd needs for these sizes (0 for float32), or -1

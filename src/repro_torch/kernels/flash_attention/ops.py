@@ -14,6 +14,8 @@ without synchronising.
 """
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from repro_torch.kernels import _build
@@ -22,7 +24,7 @@ from repro_torch.kernels.paged_attention.ops import (_DTYPE_CODE, HEAD_DIMS,
                                                      _group)
 from repro_torch.models.layers import chunked_attention
 
-FLASH_HEAD_DIMS = (64, 80, 128)
+FLASH_HEAD_DIMS = (64, 80, 128, 224)
 
 
 def _check_layout(q, tensors, k, v):
@@ -40,13 +42,14 @@ def _check_layout(q, tensors, k, v):
                          "a 16-byte boundary only")
 
 
-def flash_attention(q, k, v, *, causal=True, window=0, seq_k=None):
+def flash_attention(q, k, v, *, causal=True, window=0, seq_k=None,
+                    scale=None):
     """Dense flash attention. q: (B, Sq, H, D); k, v: (B, Sk, KH, D) with
     H % KH == 0. Positions are start-aligned, as in the JAX kernel: query
     i and key i both sit at position i. ``seq_k`` (default Sk) keys are
     valid; ``window`` > 0 limits each query to its last ``window``
-    positions. A row with no visible key is zeros. Returns (B, Sq, H, D)
-    in q's dtype."""
+    positions; ``scale`` is the softmax scale (default 1/sqrt(D)). A row
+    with no visible key is zeros. Returns (B, Sq, H, D) in q's dtype."""
     B, Sq, H, D = q.shape
     Sk, KH = k.shape[1], k.shape[2]
     seq_k = Sk if seq_k is None else int(seq_k)
@@ -56,7 +59,7 @@ def flash_attention(q, k, v, *, causal=True, window=0, seq_k=None):
     _build.forbid_grad("flash_attention", q, k, v)
     if q.device.type == "cpu":
         return chunked_attention(q, k, v, causal=causal, window=window,
-                                 kv_len=seq_k)
+                                 kv_len=seq_k, scale=scale)
     _check_layout(q, (q, k, v), k, v)
     if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype \
             or v.dtype != q.dtype:
@@ -69,12 +72,19 @@ def flash_attention(q, k, v, *, causal=True, window=0, seq_k=None):
     if not 0 <= seq_k <= Sk or window < 0:
         raise ValueError(f"seq_k {seq_k} must lie in [0, {Sk}] and window "
                          f"{window} must not be negative")
+    if scale is not None and not scale > 0:
+        raise ValueError(f"scale {scale} must be positive")
     out = torch.empty_like(q)
     lib = _build.library("flash_attention")
-    fn = _build.bind(lib, "flash_attention_fwd", 4, 10)
+    fn = lib.flash_attention_fwd
+    if fn.argtypes is None:
+        # 4 pointers, 10 ints, the scale (0: 1/sqrt(D)), the stream
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 10
+                       + [ctypes.c_float, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Sq,
             Sk, KH, H // KH, D, seq_k, int(bool(causal)), int(window),
-            _DTYPE_CODE[q.dtype],
+            _DTYPE_CODE[q.dtype], float(scale or 0.0),
             torch.cuda.current_stream(q.device).cuda_stream)
     _build.check("flash_attention", "flash_attention_fwd", rc)
     _build.LAUNCHES["flash_attention"] += 1

@@ -4,8 +4,8 @@ Same contract as ``ssd`` in the JAX package's ``repro/kernels/ssd/ops.py``
 and as :func:`repro_torch.models.mamba2.ssd_chunked` with ``h0 = 0``.
 CPU tensors run the plain version (``ref.py``); CUDA tensors launch the
 kernel or raise. The kernel reads x and writes y in their (b, s, h, p)
-layout and reads B and C from their (b, s, n) layout through its row
-stride, so the wrapper makes no transposes and no per-head copies (the
+layout and reads B and C from their (b, s, n) or (b, s, g, n) layout
+through their strides, so the wrapper makes no transposes and no per-head copies (the
 JAX wrapper's exist for TPU block specs); it allocates y and the final
 state and launches on the current stream without synchronising.
 
@@ -39,7 +39,7 @@ def _entry(name: str):
     if fn is None:
         lib = _build.library("ssd")
         if name == "ssd_fwd":
-            fn = _build.bind(lib, name, 7, 9)
+            fn = _build.bind(lib, name, 7, 11)
         else:   # ssd_workspace_bytes(b, S, H, P, N, Q, dtype)
             fn = getattr(lib, name)
             fn.argtypes = [ctypes.c_int] * 7
@@ -61,14 +61,17 @@ def _workspace(dev, stream: int, nbytes: int):
 
 def ssd(x, a, B, C, chunk=256):
     """x: (b, s, h, p) (already * dt); a: (b, s, h) float32; B, C:
-    (b, s, n) shared across heads. Returns (y (b, s, h, p) in x's dtype,
-    final state (b, h, p, n) float32)."""
+    (b, s, n) shared across heads, or (b, s, g, n) in g groups (head i
+    reads group i // (h / g)). Returns (y (b, s, h, p) in x's dtype, final
+    state (b, h, p, n) float32)."""
     _build.forbid_grad("ssd", x, a, B, C)
     if x.device.type == "cpu":
         return ssd_chunked(x, a, B, C, chunk)
     b, s, h, p = x.shape
     n = B.shape[-1]
     Q = min(chunk, s)
+    # one group: (b, s, n) is (b, s, 1, n) with no group stride
+    g, bc_g = (B.shape[2], B.stride(2)) if B.dim() == 4 else (1, 0)
     for t in (x, a, B, C):
         if t.device != x.device:
             raise ValueError(f"all inputs must be on {x.device}, "
@@ -82,18 +85,19 @@ def ssd(x, a, B, C, chunk=256):
             or a.shape != (b, s, h):
         raise ValueError("x must be a contiguous (b, s, h, p) and a a "
                          "contiguous (b, s, h)")
-    if B.shape != (b, s, n) or C.shape != B.shape \
-            or B.stride() != C.stride() or B.stride(-1) != 1 \
-            or B.stride(0) >= 2 ** 31:
-        raise ValueError("B and C must be (b, s, n) with equal strides, "
-                         "a contiguous last axis and int32 strides")
+    if B.shape[:2] != (b, s) or B.shape[-1] != n or B.dim() not in (3, 4) \
+            or C.shape != B.shape or B.stride() != C.stride() \
+            or B.stride(-1) != 1 or B.stride(0) >= 2 ** 31 or h % g:
+        raise ValueError("B and C must be (b, s, n) or (b, s, g, n) with g "
+                         "dividing the heads, equal strides, a contiguous "
+                         "last axis and int32 strides")
     if p not in HEAD_DIMS or n not in STATE_DIMS or not 0 < Q <= MAX_CHUNK:
         raise ValueError(f"the kernel takes head dim in {HEAD_DIMS}, state "
                          f"dim in {STATE_DIMS} and chunks up to {MAX_CHUNK}; "
                          f"got p={p} n={n} chunk={Q}")
     code = _DTYPE_CODE[x.dtype]
     if code == 1 and (any(t.data_ptr() % 16 for t in (x, B, C))
-                      or B.stride(0) % 8 or B.stride(1) % 8):
+                      or B.stride(0) % 8 or B.stride(1) % 8 or bc_g % 8):
         raise ValueError("bfloat16 x, B and C rows must start on 16-byte "
                          "boundaries (row strides a multiple of 8)")
     stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -106,8 +110,8 @@ def ssd(x, a, B, C, chunk=256):
     state = torch.empty((b, h, p, n), dtype=torch.float32, device=x.device)
     rc = _entry("ssd_fwd")(
         x.data_ptr(), a.data_ptr(), B.data_ptr(), C.data_ptr(), y.data_ptr(),
-        state.data_ptr(), ws, b, s, h, p, n, Q, B.stride(0), B.stride(1),
-        code, stream)
+        state.data_ptr(), ws, b, s, h, p, n, Q, B.stride(0), B.stride(1), g,
+        bc_g, code, stream)
     _build.check("ssd", "ssd_fwd", rc)
     _build.LAUNCHES["ssd"] += 1
     for k in (("ssd_chunk_state", "ssd_state_pass", "ssd_chunk_scan")

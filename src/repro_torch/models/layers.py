@@ -67,18 +67,23 @@ def rms_norm(x, weight, eps=1e-5):
 
 # ---------------------------------------------------------------------------
 # RoPE: interleaved pairs (2i, 2i+1) rotate together -- NOT the half-split
-# rotation most PyTorch code uses; it must match the reference bit layout
+# rotation most PyTorch code uses; it must match the reference bit layout.
+# ``half`` rotates (i, i + D/2) instead (rotate-half, Zamba2's shared block)
 # ---------------------------------------------------------------------------
 
-def rope(x, positions, theta=10000.0):
+def rope(x, positions, theta=10000.0, half=False):
     """x: (..., S, H, D); positions: (..., S) integer."""
     d = x.shape[-1]
-    half = d // 2
-    idx = torch.arange(half, dtype=torch.float32, device=x.device)
-    freqs = theta ** (-idx / half)                                # (half,)
-    ang = positions.float()[..., None] * freqs                    # (..., S, half)
-    cos = torch.cos(ang)[..., None, :]                            # (..., S, 1, half)
+    n = d // 2
+    idx = torch.arange(n, dtype=torch.float32, device=x.device)
+    freqs = theta ** (-idx / n)                                   # (n,)
+    ang = positions.float()[..., None] * freqs                    # (..., S, n)
+    cos = torch.cos(ang)[..., None, :]                            # (..., S, 1, n)
     sin = torch.sin(ang)[..., None, :]
+    if half:
+        x1, x2 = x[..., :n].float(), x[..., n:].float()
+        return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
+                         dim=-1).to(x.dtype)
     x1 = x[..., 0::2].float()
     x2 = x[..., 1::2].float()
     o1 = x1 * cos - x2 * sin
@@ -91,15 +96,16 @@ def rope(x, positions, theta=10000.0):
 # ---------------------------------------------------------------------------
 
 def chunked_attention(q, k, v, *, causal=True, window=0, q_offset=0,
-                      kv_len=None, q_chunk=512):
+                      kv_len=None, q_chunk=512, scale=None):
     """Masked softmax attention, one block of ``q_chunk`` queries at a time.
 
     q: (B, Sq, H, D); k, v: (B, Sk, KH, D) with H % KH == 0 (GQA).
     ``q_offset``: absolute position of q[0] (chunked prefill);
     ``kv_len``: (B,) tensor or int of valid kv positions (padded cache);
-    ``window``: sliding-window size (0 = unlimited).
-    Scores in float32; probabilities are cast to v's dtype before the PV
-    product and accumulated in float32, as the reference does. A row with
+    ``window``: sliding-window size (0 = unlimited); ``scale``: the
+    softmax scale (default 1/sqrt(D)). Scores in float32; probabilities
+    are cast to v's dtype before the PV product and accumulated in
+    float32, as the reference does. A row with
     no visible key is zeros, as in the flash kernel (the reference's
     online softmax averages such a row; no model path has one). Returns
     (B, Sq, H, D) in q's dtype.
@@ -107,7 +113,7 @@ def chunked_attention(q, k, v, *, causal=True, window=0, q_offset=0,
     B, Sq, H, D = q.shape
     Sk, KH = k.shape[1], k.shape[2]
     G = H // KH
-    scale = 1.0 / math.sqrt(D)
+    scale = 1.0 / math.sqrt(D) if scale is None else scale
     dev = q.device
     kf, vf = k.float(), v.float()
     kpos = torch.arange(Sk, device=dev)
@@ -138,19 +144,19 @@ def chunked_attention(q, k, v, *, causal=True, window=0, q_offset=0,
 
 
 def decode_attention_appended(q, k_cache, v_cache, k_new, v_new, *,
-                              prev_len, window=0):
+                              prev_len, window=0, scale=None):
     """Single-token attention over (existing cache) + (the new token's kv),
     without writing the new kv into the cache first.
 
     q: (B, 1, H, D); caches: (B, KH, Smax, D) kv-heads-major;
     k_new/v_new: (B, KH, D); prev_len: (B,) valid positions before this
-    token; ``window``: sliding-window size (0 = unlimited). Returns
-    (B, 1, H, D).
+    token; ``window``: sliding-window size (0 = unlimited); ``scale``: the
+    softmax scale (default 1/sqrt(D)). Returns (B, 1, H, D).
     """
     B, _, H, D = q.shape
     KH, Smax = k_cache.shape[1], k_cache.shape[2]
     G = H // KH
-    scale = 1.0 / math.sqrt(D)
+    scale = 1.0 / math.sqrt(D) if scale is None else scale
     qr = q.reshape(B, KH, G, D).float()
     s = torch.einsum("bhgd,bhkd->bhgk", qr, k_cache.float()) * scale
     pos = torch.arange(Smax, device=q.device)
@@ -243,8 +249,8 @@ def split_heads_rope(q, k, v, cfg, positions):
     k = k.reshape(B, S, KH, hd)
     v = v.reshape(B, S, KH, hd)
     if cfg.causal or not cfg.is_encoder:
-        q = rope(q, positions, cfg.rope_theta)
-        k = rope(k, positions, cfg.rope_theta)
+        q = rope(q, positions, cfg.rope_theta, cfg.rope_half)
+        k = rope(k, positions, cfg.rope_theta, cfg.rope_half)
     return q, k, v
 
 
@@ -274,14 +280,16 @@ def attention_layer(x, p, cfg, *, positions, cache=None, cache_index=None,
             q = _hints.constrain_batch(q, hp.attn_dp)
             k = _hints.constrain_batch(k, hp.attn_dp)
             v = _hints.constrain_batch(v, hp.attn_dp)
-        out = attend(q, k, v, causal=cfg.causal, window=window)
+        out = attend(q, k, v, causal=cfg.causal, window=window,
+                     scale=cfg.attn_scale)
         if hp is not None and hp.attn_dp is not None:
             out = _hints.constrain_batch(out, hp.batch_axes)
         new_cache = (k, v) if return_kv else None
     else:
         out = decode_attention_appended(q, cache["k"], cache["v"], k[:, 0],
                                         v[:, 0], prev_len=cache_index,
-                                        window=window)
+                                        window=window,
+                                        scale=cfg.attn_scale)
         new_cache = (k[:, 0], v[:, 0])
     return out.reshape(B, S, H * hd) @ p["wo"], new_cache
 
@@ -304,3 +312,14 @@ def init_mlp(generator, d_model, d_ff, num_layers, dtype, num_stacked):
 def mlp_layer(x, p):
     h = F.silu(x @ p["w1"]) * (x @ p["w3"])
     return h @ p["w2"]
+
+
+def gated_gelu_mlp(x, p, adapter=None):
+    """Zamba2's MLP: gate and up from one (d, 2f) ``gate_up`` product (plus
+    the low-rank ``adapter`` (A (d, r), B (r, 2f)) where given), then
+    gelu(gate) * up through ``down`` (f, d)."""
+    gu = x @ p["gate_up"]
+    if adapter is not None:
+        gu = gu + (x @ adapter[0]) @ adapter[1]
+    gate, up = gu.chunk(2, dim=-1)
+    return (F.gelu(gate) * up) @ p["down"]

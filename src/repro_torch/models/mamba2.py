@@ -37,38 +37,53 @@ def ssd_chunked(x, a, B, C, chunk, h0=None):
 
     x: (b, s, h, p) inputs (already multiplied by dt); a: (b, s, h) log
     decay A*dt (<= 0); B, C: (b, s, n) input / output projections (one
-    group, shared across heads); h0: optional (b, h, p, n) initial state.
+    group, shared across heads) or (b, s, g, n) (g groups: head i reads
+    group i // (h / g)); h0: optional (b, h, p, n) initial state.
     Returns (y (b, s, h, p) in x's dtype, final state (b, h, p, n) float32).
     """
     b, s, h, p = x.shape
     n = B.shape[-1]
+    g = B.shape[2] if B.dim() == 4 else 0
     Q = min(chunk, s)
     s_orig = s
     if s % Q:
         # zero inputs and zero log-decay: padded steps leave the state as it
         # is and add nothing, so the first s_orig positions are exact
         pad = Q - s % Q
+        bc_pad = (0, 0) * (B.dim() - 2) + (0, pad)
         x = F.pad(x, (0, 0, 0, 0, 0, pad))
         a = F.pad(a, (0, 0, 0, pad))
-        B = F.pad(B, (0, 0, 0, pad))
-        C = F.pad(C, (0, 0, 0, pad))
+        B = F.pad(B, bc_pad)
+        C = F.pad(C, bc_pad)
         s = s + pad
     nc = s // Q
 
     xr = x.reshape(b, nc, Q, h, p).float()
-    Br = B.reshape(b, nc, Q, n).float()
-    Cr = C.reshape(b, nc, Q, n).float()
+    Br = B.reshape(b, nc, Q, *B.shape[2:]).float()
+    Cr = C.reshape(b, nc, Q, *C.shape[2:]).float()
     ar = a.reshape(b, nc, Q, h).permute(0, 3, 1, 2).float()   # (b,h,nc,Q)
     a_cs = torch.cumsum(ar, dim=-1)
 
     # intra-chunk (quadratic within a chunk)
     L = torch.exp(segsum(ar))                                  # (b,h,nc,Q,Q)
-    scores = torch.einsum("bcqn,bckn->bcqk", Cr, Br)
-    y_diag = torch.einsum("bcqk,bhcqk,bckhp->bcqhp", scores, L, xr)
-
-    # chunk final states
     decay_states = torch.exp(a_cs[..., -1:] - a_cs)            # (b,h,nc,Q)
-    states = torch.einsum("bckn,bhck,bckhp->bchpn", Br, decay_states, xr)
+    if g:
+        # heads as (group, head of the group): each group's B and C
+        # serve its h / g heads
+        xg = xr.reshape(b, nc, Q, g, h // g, p)
+        scores = torch.einsum("bcqgn,bckgn->bcgqk", Cr, Br)
+        y_diag = torch.einsum("bcgqk,bgjcqk,bckgjp->bcqgjp", scores,
+                              L.reshape(b, g, h // g, nc, Q, Q),
+                              xg).reshape(b, nc, Q, h, p)
+        states = torch.einsum("bckgn,bgjck,bckgjp->bcgjpn", Br,
+                              decay_states.reshape(b, g, h // g, nc, Q),
+                              xg).reshape(b, nc, h, p, n)
+    else:
+        scores = torch.einsum("bcqn,bckn->bcqk", Cr, Br)
+        y_diag = torch.einsum("bcqk,bhcqk,bckhp->bcqhp", scores, L, xr)
+        # chunk final states
+        states = torch.einsum("bckn,bhck,bckhp->bchpn", Br, decay_states,
+                              xr)
 
     # inter-chunk recurrence
     if h0 is None:
@@ -81,8 +96,14 @@ def ssd_chunked(x, a, B, C, chunk, h0=None):
     final_state = new_states[:, -1]
 
     state_decay = torch.exp(a_cs)                              # (b,h,nc,Q)
-    y_off = torch.einsum("bcqn,bchpn,bhcq->bcqhp", Cr, prev_states,
-                         state_decay)
+    if g:
+        y_off = torch.einsum(
+            "bcqgn,bcgjpn,bgjcq->bcqgjp", Cr,
+            prev_states.reshape(b, nc, g, h // g, p, n),
+            state_decay.reshape(b, g, h // g, nc, Q)).reshape(b, nc, Q, h, p)
+    else:
+        y_off = torch.einsum("bcqn,bchpn,bhcq->bcqhp", Cr, prev_states,
+                             state_decay)
     y = (y_diag + y_off).reshape(b, s, h, p)[:, :s_orig]
     return y.to(x.dtype), final_state
 
@@ -90,9 +111,16 @@ def ssd_chunked(x, a, B, C, chunk, h0=None):
 def ssd_decode_step(x, a, B, C, h_prev):
     """Single-token SSD state update.
 
-    x: (b, h, p) (already * dt); a: (b, h); B, C: (b, n); h_prev:
-    (b, h, p, n). Returns (y (b, h, p), h_new)."""
+    x: (b, h, p) (already * dt); a: (b, h); B, C: (b, n), or (b, g, n) for
+    g groups (head i reads group i // (h / g)); h_prev: (b, h, p, n).
+    Returns (y (b, h, p), h_new)."""
     decay = torch.exp(a.float())[..., None, None]
+    if B.dim() == 3:
+        rep = x.shape[1] // B.shape[1]
+        Bh = B.float().repeat_interleave(rep, dim=1)           # (b, h, n)
+        Ch = C.float().repeat_interleave(rep, dim=1)
+        h_new = h_prev * decay + x.float()[..., None] * Bh[:, :, None, :]
+        return torch.einsum("bhn,bhpn->bhp", Ch, h_new).to(x.dtype), h_new
     h_new = h_prev * decay + torch.einsum("bhp,bn->bhpn", x.float(),
                                           B.float())
     y = torch.einsum("bn,bhpn->bhp", C.float(), h_new)
@@ -106,7 +134,8 @@ def ssd_decode_step(x, a, B, C, h_prev):
 def init_mamba(generator, cfg, dtype, num_stacked):
     """Mixer weights stacked on a leading layer axis. ``A_log``, ``D`` and
     ``dt_bias`` are float32 whatever ``dtype`` is, as in the reference."""
-    d, di, n = cfg.d_model, cfg.d_inner, cfg.ssm.d_state
+    d, di = cfg.d_model, cfg.d_inner
+    n = cfg.ssm.n_groups * cfg.ssm.d_state        # B (or C) columns
     h, ck, L = cfg.ssm_heads, cfg.ssm.conv_kernel, num_stacked
     dev = generator.device
     # dt bias: softplus(dt_bias) log-uniform in [1e-3, 1e-1]
@@ -131,7 +160,7 @@ def init_mamba(generator, cfg, dtype, num_stacked):
 
 
 def _split_proj(zxbcdt, cfg):
-    di, n = cfg.d_inner, cfg.ssm.d_state
+    di, n = cfg.d_inner, cfg.ssm.n_groups * cfg.ssm.d_state
     z = zxbcdt[..., :di]
     xBC = zxbcdt[..., di:2 * di + 2 * n]
     dt = zxbcdt[..., 2 * di + 2 * n:]
@@ -163,7 +192,8 @@ def _mixer(zxbcdt, p, cfg, *, state=None, use_kernel=False):
     + h), the whole in_proj output -> (the gated, normed y (B, S, di), the
     new state), as :func:`mamba_layer` describes."""
     B, S, _ = zxbcdt.shape
-    di, n, h = cfg.d_inner, cfg.ssm.d_state, cfg.ssm_heads
+    G = cfg.ssm.n_groups
+    di, n, h = cfg.d_inner, G * cfg.ssm.d_state, cfg.ssm_heads
     P = cfg.ssm.head_dim
     z, xBC, dt = _split_proj(zxbcdt, cfg)
     A = -torch.exp(p["A_log"])                                 # (h,) negative
@@ -179,6 +209,8 @@ def _mixer(zxbcdt, p, cfg, *, state=None, use_kernel=False):
         xh = xBC[..., :di].reshape(B, S, h, P)
         Bp = xBC[..., di:di + n]
         Cp = xBC[..., di + n:]
+        if G > 1:       # (B, S, G, d_state) views
+            Bp, Cp = (t.unflatten(-1, (G, -1)) for t in (Bp, Cp))
         # x * dt is rounded to x's dtype before the scan; a = dt * A stays
         # float32, as in the reference
         y, final = scan(xh * dt[..., None].to(xh.dtype),
@@ -199,6 +231,8 @@ def _mixer(zxbcdt, p, cfg, *, state=None, use_kernel=False):
         xh = xBC1[..., :di].reshape(B, h, P)
         Bp = xBC1[:, 0, di:di + n]
         Cp = xBC1[:, 0, di + n:]
+        if G > 1:
+            Bp, Cp = (t.unflatten(-1, (G, -1)) for t in (Bp, Cp))
         dt1 = dt[:, 0]                                         # (B, h)
         y, ssm_new = ssd_decode_step(xh * dt1[..., None].to(xh.dtype),
                                      dt1 * A[None, :], Bp, Cp, state["ssm"])
@@ -208,6 +242,11 @@ def _mixer(zxbcdt, p, cfg, *, state=None, use_kernel=False):
         new_state = {"conv": window[:, 1:, :], "ssm": ssm_new}
 
     y = y.reshape(B, S, di)
+    if G > 1:
+        # the gated norm over each group's columns
+        return rms_norm((y * F.silu(z)).unflatten(-1, (G, -1)),
+                        p["norm"].unflatten(-1, (G, -1)),
+                        cfg.norm_eps).flatten(-2), new_state
     return rms_norm(y * F.silu(z), p["norm"], cfg.norm_eps), new_state
 
 
@@ -234,7 +273,8 @@ def mamba_layer_sharded(x, ps, cfg, gather, reduce, *, states=None,
     dimension does not divide over the shards is whole on every shard and
     computed once, on the lead device. Returns (out (B, S, D) on the lead
     device, each shard's new state)."""
-    whole = 2 * cfg.d_inner + 2 * cfg.ssm.d_state + cfg.ssm_heads
+    whole = (2 * cfg.d_inner + 2 * cfg.ssm.n_groups * cfg.ssm.d_state
+             + cfg.ssm_heads)
     if ps[0]["in_proj"].shape[-1] < whole:
         zxbcdt = gather([x.to(p["in_proj"].device) @ p["in_proj"]
                          for p in ps])

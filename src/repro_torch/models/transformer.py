@@ -25,6 +25,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.distributed.sharding import DataSlices
 from repro_torch.models.layers import (attention_layer,
                                        decode_attention_appended, dense_init,
+                                       gated_gelu_mlp,
                                        head_dim_split_attention,
                                        init_attention, init_mlp, mlp_layer,
                                        project_qkv, rms_norm,
@@ -241,7 +242,9 @@ class ServeStack:
     A layer is addressed by its index in the stacked ``layers``, or by
     ``"shared"`` for the hybrid's one shared attention + MLP block
     (``params["shared"]``, not stacked), which every attention op below
-    takes as well.
+    takes as well; the published Zamba2 layout's tied blocks
+    (``params["blocks"]``, stacked over ``num_mem_blocks``) are
+    ``("block", k)``, run by :meth:`tied_block` on one device only.
 
     :meth:`qkv` gives each shard its (q, k, v) at the cache's split
     (``kv_split``): with "heads" shard s holds kv heads [s KH/N, (s+1) KH/N)
@@ -277,6 +280,17 @@ class ServeStack:
         self.n = len(self.params)
         self.layers = [[layer_params(p, i) for i in range(cfg.num_layers)]
                        for p in self.params]
+        # the published hybrid's tied blocks and its per-application
+        # weights (adapter, linear), as views
+        self.tied, self.apps = {}, []
+        if cfg.hybrid_layer_ids:
+            if shard is not None:
+                raise NotImplementedError(
+                    "the published hybrid block serves on one device")
+            self.tied = {("block", k): layer_params({"layers": params[
+                "blocks"]}, k) for k in range(cfg.num_mem_blocks)}
+            self.apps = [layer_params({"layers": params["apps"]}, j)
+                         for j in range(len(cfg.hybrid_layer_ids))]
         self._fsdp = shard is not None and any(
             isinstance(x, DataSlices) for x in tree_leaves(self.params[0]))
         # the gathered weights of the layer in use: (key, one tree a shard)
@@ -295,6 +309,8 @@ class ServeStack:
         """Shard ``s``'s parameters of layer ``i`` (an index, or
         ``"shared"``), its data-split weights gathered."""
         if not self._fsdp:
+            if isinstance(i, tuple):
+                return self.tied[i]
             return self.params[s]["shared"] if i == "shared" \
                 else self.layers[s][i]
         if self._held[0] != i:
@@ -440,6 +456,22 @@ class ServeStack:
         h = h + self.out_proj(attend(self.qkv(xa, i, positions)), i)
         return h + self.ffn(rms_norm(h, lp["norm2"], eps), i)
 
+    def tied_block(self, h, e, j: int, positions, attend):
+        """Application ``j`` of the published Zamba2 block, tied block
+        j % ``num_mem_blocks``: attention over the norm of the stream h
+        concatenated with the embeddings e (B, S, 2 D), the norm of its
+        output through the gated-GELU MLP with application j's adapter,
+        then application j's linear. No residual: the result T (B, S, D)
+        is added to the input of the mamba layer at ``hybrid_layer_ids[j]``
+        by the caller. ``attend`` as for :meth:`block`."""
+        i = ("block", j % self.cfg.num_mem_blocks)
+        bp, ap, eps = self._lp(0, i), self.apps[j], self.cfg.norm_eps
+        u = rms_norm(torch.cat([h, e], dim=-1), bp["norm1"], eps)
+        a = self.out_proj(attend(self.qkv(u, i, positions)), i)
+        t = gated_gelu_mlp(rms_norm(a, bp["norm2"], eps), bp["mlp"],
+                           (ap["adapter_in"], ap["adapter_out"]))
+        return t @ ap["linear"]
+
     def decode_attend(self, kv, lens, lens_s, new, window=0):
         """The ``attend`` of :meth:`block` for one decode step over a slot
         cache: ``kv`` the layer's per-shard (k, v) caches (B, KH_s, S,
@@ -454,7 +486,8 @@ class ServeStack:
                 nv.append(v[:, 0])
             if self.kv_split == "heads":
                 return [decode_attention_appended(
-                    q, kc, vc, k[:, 0], v[:, 0], prev_len=n, window=window)
+                    q, kc, vc, k[:, 0], v[:, 0], prev_len=n, window=window,
+                    scale=self.cfg.attn_scale)
                     for (q, k, v), (kc, vc), n in zip(qkv, kv, lens_s)]
 
             def context(s):

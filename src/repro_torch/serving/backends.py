@@ -55,7 +55,10 @@ On the slot backend ``use_kernel`` picks the prefill tier: True runs a
 one-shot prompt's SSD scans (``ssd``) and its attention without a cache
 (``flash_attention``) through the hand-written kernels; False runs the
 plain versions. Its chunked prefill (attention families) and its decode
-run plain PyTorch in both tiers, as the reference's do.
+run plain PyTorch in both tiers, as the reference's do; for the published
+hybrid layout on one CUDA device the kernel tier replays its decode
+iteration as a CUDA graph (``_StepGraph``, the helper ``_DecodeGraph``
+extends).
 
 The paged backend also swaps a preempted sequence's KV to host memory and
 back (``swap_out`` / ``swap_in``).
@@ -259,6 +262,16 @@ def _replays_decode(use_kernel: bool, shard, device) -> bool:
     return use_kernel and shard is None and device.type == "cuda"
 
 
+def _slot_replays_decode(cfg, use_kernel: bool, shard, device) -> bool:
+    """Whether the slot backend replays its fused decode iteration as a
+    CUDA graph: as the paged backend, for the published hybrid layout
+    (``hybrid_layer_ids``), whose replay the card tests hold to the eager
+    loop. The ssm family, the ``attn_every`` hybrid and the attention
+    families issue it op by op."""
+    return bool(cfg.hybrid_layer_ids) and _replays_decode(use_kernel, shard,
+                                                          device)
+
+
 def _lead_device(device, shard) -> torch.device:
     """A backend's device: ``device`` (default: the CUDA card), or under a
     mesh its lead shard's, which ``device`` must name if given."""
@@ -349,6 +362,12 @@ class SlotBackend:
         self.slot_of: dict[str, int] = {}
         self._dec_st = None         # device-resident per-slot decode state
         self._live = 0              # its active slots (the decode.issue attr)
+        # the published hybrid layout's kernel tier on one CUDA device
+        # replays one iteration of its fused decode loop as a CUDA graph
+        # (made on the first fused call)
+        self._graphable = _slot_replays_decode(cfg, use_kernel, self.shard,
+                                               self.device)
+        self._graph = None
 
     def _put(self, site: str, x, dtype=None):
         """Host array -> tensor on the backend's device; ``site`` names
@@ -474,7 +493,7 @@ class SlotBackend:
         if self.cfg.family not in ATTENTION_FAMILIES:
             logits = serve_decode_step(st, tokens, self.cache_shards, lens,
                                        window=self.window)
-            self.cache["len"] = lens + 1
+            lens.add_(1)            # in place: a decode graph replays it
             return logits
         lens_s = st.replicate(lens)
         new = [([], []) for _ in range(st.n)]
@@ -500,19 +519,34 @@ class SlotBackend:
         limit; the cache still steps every slot, as the legacy path does
         for freed slots, so live slots compute exactly what they would
         alone. Returns (tokens (K, B), produced (B,), done (B,), st)."""
+        if self._graphable:
+            if self._graph is None:
+                apps = self.cfg.attn_layer_count()
+                self._graph = _StepGraph(
+                    self.device, self.max_slots, self._iteration,
+                    rewind=False,
+                    counts={"shared_block.apps": apps} if apps else None)
+            g = self._graph
+            g.bind(st)
+            return g.run(K), g.produced, g.done, g.st
         B = st["tokens"].shape[0]
+        out = torch.zeros((K, B), dtype=torch.int32, device=self.device)
         tokens, n_gen = st["tokens"], st["n_gen"]
         done = torch.zeros((B,), dtype=torch.bool, device=self.device)
         produced = torch.zeros((B,), dtype=torch.int32, device=self.device)
-        out = torch.zeros((K, B), dtype=torch.int32, device=self.device)
         RECORDER.count("decode_graph.eager", K)
         for i in range(K):
-            logits = self._decode_step(tokens)
-            live = st["active"] & ~done
-            tokens, n_gen, done, produced = _sample_and_latch(
-                st, logits, tokens, n_gen, done, produced, live)
+            tokens, n_gen, done, produced = self._iteration(
+                st, tokens, n_gen, done, produced)
             out[i] = tokens
         return out, produced, done, dict(st, tokens=tokens, n_gen=n_gen)
+
+    def _iteration(self, st, tokens, n_gen, done, produced):
+        """One iteration of the fused loop: the decode step of every slot,
+        then sample and latch. Returns (tokens, n_gen, done, produced)."""
+        logits = self._decode_step(tokens)
+        return _sample_and_latch(st, logits, tokens, n_gen, done, produced,
+                                 st["active"] & ~done)
 
     def fused_decode(self, K: int, host_state: dict | None = None):
         """Run K decode steps on the device; sync only token ids and flags,
@@ -531,7 +565,13 @@ class SlotBackend:
             out, produced, done, self._dec_st = self._fused_impl(
                 self._dec_st, K)
         with RECORDER.span("decode.sync"):
-            return _to_host(out, produced, done)
+            out, produced, done = _to_host(out, produced, done)
+        if RECORDER.on:
+            # every slot is stepped each iteration; a live row is one that
+            # produced its token there
+            RECORDER.count("decode_rows.stepped", K * self.max_slots)
+            RECORDER.count("decode_rows.live", int(produced.sum()))
+        return out, produced, done
 
     @property
     def supports_fused_decode(self) -> bool:
@@ -1069,13 +1109,7 @@ class PagedBackend:
         them."""
         g = self._graph
         g.bind(st, tables, lens0)
-        g.done.zero_()
-        g.produced.zero_()
-        out = torch.zeros((K, self.max_slots), dtype=torch.int32,
-                          device=self.device)
-        for i in range(K):
-            g.iterate()
-            out[i] = g.st["tokens"]
+        out = g.run(K)
         self._commit_tails([g.tails], g.tables, g.lens, g.produced)
         g.lens.add_(g.produced)
         return out, g.produced, g.done, g.st, g.lens
@@ -1354,47 +1388,159 @@ class PagedBackend:
         return s
 
 
-class _DecodeGraph:
-    """One step of the kernel tier's fused decode loop
-    (:meth:`PagedBackend._kernel_step` at B = ``max_slots``, one device)
-    over static buffers, captured as a CUDA graph and replayed once a step.
+class _StepGraph:
+    """One iteration of a backend's fused decode loop over static buffers,
+    captured as a CUDA graph and replayed once an iteration.
 
-    The buffers are the per-slot decode state ``st`` (tokens, n_gen,
-    active, temps, top_ps, seed_base, stop_tok, gen_limit), the device
-    (tables, lens) pair, ``done`` / ``produced``, and the
-    (L, B, K_cap, KH, hd) tails, K_cap the largest K asked so far.
-    ``_upload_state`` and ``_refresh_tables`` copy into them; state a call
-    hands in from elsewhere (the speculative verify's) is copied in on the
-    device (:meth:`bind`). A larger K regrows the tails and drops the graph,
-    to be captured again. The paged kernel reads its lengths on the device
-    and runs at ``kt_cap = K_cap``; tail rows past a slot's length are
-    never read, and the split-K schedule depends on the length alone, so
-    K_cap rows give what K rows give.
+    ``forward(st, tokens, n_gen, done, produced)`` is the iteration: from
+    the per-slot decode state ``st`` (tokens, n_gen, active, temps, top_ps,
+    seed_base, stop_tok, gen_limit) and ``done`` / ``produced`` it returns
+    the next (tokens, n_gen, done, produced), which :meth:`step` copies
+    back into the static buffers. Whatever else it reads or writes (the
+    slot cache; the paged tier's tables, lens and tails) its backend keeps
+    at fixed addresses. ``_upload_state`` can copy into ``st``; state a
+    call hands in from elsewhere is copied in on the device (:meth:`bind`).
 
-    Capture runs the step once on the capture stream, which makes the
-    workspaces cuBLAS and the paged kernel keep per stream and sets the
-    kernel's shared-memory attribute, puts back the state that step moved,
-    then records the step. The launches each kernel wrapper made while it
-    was recorded are added to ``_build.LAUNCHES`` on every replay (the
-    warm-up's are not counted: a replay redoes that step). Off CUDA
-    nothing is captured and a step is a direct call, op by op."""
+    Capture first runs the iteration on the capture stream, which makes the
+    workspaces cuBLAS and the port's kernels keep per stream (and sets the
+    paged kernel's shared-memory attribute), then records it with the
+    recorder off. With ``rewind`` that warm-up is undone: the state it
+    moved is put back and its kernel launches are not counted, since the
+    first replay redoes it (the paged tier's step writes only its tails).
+    Without it the warm-up is the call's real iteration (a recurrent state
+    cannot be stepped twice) and counts ``decode_graph.eager``. A replay
+    adds the launches the recorded iteration made to ``_build.LAUNCHES``
+    and counts ``decode_graph.replay`` and ``counts`` (what the recorded
+    iteration would have counted). Off CUDA nothing is captured and an
+    iteration is a direct call, op by op."""
+
+    def __init__(self, device, B: int, forward, *, rewind: bool,
+                 counts: dict | None = None):
+        self.device = device
+        self.forward = forward
+        self.rewind = rewind
+        self.counts = counts or {}
+        self.produced = torch.zeros((B,), dtype=torch.int32, device=device)
+        self.done = torch.zeros((B,), dtype=torch.bool, device=device)
+        self.st = None
+        self.graph = None
+        self.stream = None
+        self.launches = {}
+
+    def bind(self, st: dict) -> None:
+        """A call's decode state into the static buffers."""
+        if self.st is None:
+            self.st = {k: v.clone() for k, v in st.items()}
+        elif st is not self.st:
+            for k, v in st.items():
+                self.st[k].copy_(v)
+
+    def run(self, K: int):
+        """K iterations from ``done`` and ``produced`` zeroed: their tokens
+        (K, B), each copied out after its iteration."""
+        self.done.zero_()
+        self.produced.zero_()
+        out = torch.zeros((K, self.done.shape[0]), dtype=torch.int32,
+                          device=self.device)
+        for i in range(K):
+            self.iterate()
+            out[i] = self.st["tokens"]
+        return out
+
+    def step(self) -> None:
+        """One iteration on the static buffers, its results copied back
+        into them."""
+        st = self.st
+        new = self.forward(st, st["tokens"], st["n_gen"], self.done,
+                           self.produced)
+        for dst, src in zip((st["tokens"], st["n_gen"], self.done,
+                             self.produced), new):
+            dst.copy_(src)
+
+    def iterate(self) -> None:
+        """One iteration: a replay on CUDA (captured first if need be),
+        else a direct call."""
+        if self.graph is None and self.device.type == "cuda" \
+                and self._capture():
+            return
+        if self.graph is None:
+            self.step()
+            RECORDER.count("decode_graph.eager")
+            return
+        self.graph.replay()
+        for name, n in self.launches.items():
+            _build.LAUNCHES[name] += n
+        RECORDER.count("decode_graph.replay")
+        for name, n in self.counts.items():
+            RECORDER.count(name, n)
+
+    def _capture(self) -> bool:
+        """Warms up and records the graph. Returns whether the warm-up was
+        this iteration (without ``rewind``)."""
+        dev = self.device
+        cur = torch.cuda.current_stream(dev)
+        if self.stream is None:
+            self.stream = torch.cuda.Stream(dev)
+        s = self.stream
+        moved = (self.st["tokens"], self.st["n_gen"], self.done,
+                 self.produced)
+        before = dict(_build.LAUNCHES)
+        s.wait_stream(cur)
+        with torch.cuda.stream(s):
+            kept = [t.clone() for t in moved] if self.rewind else []
+            self.step()
+            for t, k in zip(moved, kept):
+                t.copy_(k)
+        cur.wait_stream(s)
+        warm = dict(_build.LAUNCHES)
+        graph = torch.cuda.CUDAGraph()
+        on, RECORDER.on = RECORDER.on, False
+        try:
+            with torch.cuda.graph(graph, stream=s,
+                                  capture_error_mode="thread_local"):
+                self.step()
+        finally:
+            RECORDER.on = on
+        self.launches = {name: n - warm.get(name, 0)
+                         for name, n in _build.LAUNCHES.items()
+                         if n != warm.get(name, 0)}
+        _build.LAUNCHES.update(before if self.rewind else warm)
+        self.graph = graph
+        RECORDER.count("decode_graph.capture")
+        if not self.rewind:
+            RECORDER.count("decode_graph.eager")
+        return not self.rewind
+
+
+class _DecodeGraph(_StepGraph):
+    """The paged kernel tier's decode graph: one step of its fused loop
+    (:meth:`PagedBackend._kernel_step` at B = ``max_slots``, one device),
+    rewound after its warm-up. Beside the decode state it holds the device
+    (tables, lens) pair, which ``_refresh_tables`` copies into, and the
+    (L, B, K_cap, KH, hd) tails, K_cap the largest K asked so far: a larger
+    K regrows the tails and drops the graph, to be captured again. The
+    paged kernel reads its lengths on the device and runs at
+    ``kt_cap = K_cap``; tail rows past a slot's length are never read, and
+    the split-K schedule depends on the length alone, so K_cap rows give
+    what K rows give. The captured graph holds its stream's paged-kernel
+    workspace."""
 
     def __init__(self, backend: PagedBackend):
         B, dev = backend.max_slots, backend.device
+        super().__init__(dev, B, self._forward, rewind=True)
         self.backend = backend
         self.tables = torch.zeros((B, backend.pages_per_seq),
                                   dtype=torch.int32, device=dev)
         self.lens = torch.zeros((B,), dtype=torch.int32, device=dev)
-        self.produced = torch.zeros((B,), dtype=torch.int32, device=dev)
-        self.done = torch.zeros((B,), dtype=torch.bool, device=dev)
         self.bidx = torch.arange(B, device=dev)
-        self.st = None
         self.tails = None
         self.k_cap = 0
-        self.graph = None
-        self.stream = None
-        self.launches = {}
         self.workspace = None       # the paged kernel's, while the graph lives
+
+    def _forward(self, st, tokens, n_gen, done, produced):
+        return self.backend._kernel_step(
+            st, tokens, n_gen, done, produced, [self.tables], self.lens,
+            [self.lens], [self.bidx], [self.tails])
 
     def reserve(self, K: int) -> None:
         """Tails of at least K rows: regrown, and the graph dropped, when K
@@ -1412,65 +1558,13 @@ class _DecodeGraph:
     def bind(self, st: dict, tables, lens) -> None:
         """A call's state into the static buffers: device copies of what
         is held elsewhere."""
-        if self.st is None:
-            self.st = {k: v.clone() for k, v in st.items()}
-        elif st is not self.st:
-            for k, v in st.items():
-                self.st[k].copy_(v)
+        super().bind(st)
         for dst, src in ((self.tables, tables), (self.lens, lens)):
             if src is not dst:
                 dst.copy_(src)
 
-    def step(self) -> None:
-        """One step on the static buffers, its results copied back into
-        them."""
-        st = self.st
-        new = self.backend._kernel_step(
-            st, st["tokens"], st["n_gen"], self.done, self.produced,
-            [self.tables], self.lens, [self.lens], [self.bidx], [self.tails])
-        for dst, src in zip((st["tokens"], st["n_gen"], self.done,
-                             self.produced), new):
-            dst.copy_(src)
-
-    def iterate(self) -> None:
-        """One step: a replay on CUDA (captured first if need be), else a
-        direct call."""
-        if self.graph is None and self.backend.device.type == "cuda":
-            self._capture()
-        if self.graph is None:
-            self.step()
-            RECORDER.count("decode_graph.eager")
-            return
-        self.graph.replay()
-        for name, n in self.launches.items():
-            _build.LAUNCHES[name] += n
-        RECORDER.count("decode_graph.replay")
-
-    def _capture(self) -> None:
-        dev = self.backend.device
-        cur = torch.cuda.current_stream(dev)
-        if self.stream is None:
-            self.stream = torch.cuda.Stream(dev)
-        s = self.stream
-        moved = (self.st["tokens"], self.st["n_gen"], self.done,
-                 self.produced)
-        before = dict(_build.LAUNCHES)
-        s.wait_stream(cur)
-        with torch.cuda.stream(s):
-            kept = [t.clone() for t in moved]
-            self.step()
-            for t, k in zip(moved, kept):
-                t.copy_(k)
-        cur.wait_stream(s)
-        self.workspace = cached_workspace(dev, s.cuda_stream)
-        warm = dict(_build.LAUNCHES)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, stream=s,
-                              capture_error_mode="thread_local"):
-            self.step()
-        self.launches = {name: n - warm[name]
-                         for name, n in _build.LAUNCHES.items()
-                         if n != warm[name]}
-        _build.LAUNCHES.update(before)
-        self.graph = graph
-        RECORDER.count("decode_graph.capture")
+    def _capture(self) -> bool:
+        warm_up = super()._capture()
+        self.workspace = cached_workspace(self.device,
+                                          self.stream.cuda_stream)
+        return warm_up

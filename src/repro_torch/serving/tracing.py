@@ -38,7 +38,11 @@ Counters: ``decode_calls``; ``decode_k1.prefill`` and
 prefill was in flight, else because the batch changed); ``syncs.<site>``
 (blocking transfers); ``decode_graph.replay`` (fused decode steps replayed
 as a CUDA graph), ``decode_graph.eager`` (fused decode steps issued op by
-op, on every other path) and ``decode_graph.capture`` (graphs captured).
+op, on every other path) and ``decode_graph.capture`` (graphs captured);
+``decode_rows.stepped`` and ``decode_rows.live`` (the slot backend's fused
+calls: rows computed, every slot each iteration, and the rows among them
+that produced a token); ``shared_block.apps`` (applications of the
+hybrid's shared or tied attention block, in prefill and decode).
 """
 from __future__ import annotations
 

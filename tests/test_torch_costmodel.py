@@ -79,10 +79,20 @@ def _calls(c, d):
     return out
 
 
+# the port's options for the published Zamba2 layout, which the reference
+# has not: at these values (every registry config's) they leave its layout
+PORT_ONLY = {"hybrid_layer_ids": (), "num_mem_blocks": 1, "adapter_rank": 0}
+PORT_ONLY_SSM = {"n_groups": 1}
+
+
 @pytest.mark.parametrize("name", CONFIGS)
 def test_instance_cost_equals_reference(name, ref_collective):
     ref_cfg, port_cfg = _cfgs(name)
-    assert dataclasses.asdict(port_cfg) == dataclasses.asdict(ref_cfg)
+    port = dataclasses.asdict(port_cfg)
+    assert {k: port.pop(k) for k in PORT_ONLY} == PORT_ONLY
+    if port["ssm"] is not None:
+        assert {k: port["ssm"].pop(k) for k in PORT_ONLY_SSM} == PORT_ONLY_SSM
+    assert port == dataclasses.asdict(ref_cfg)
     ref_d = ref_cost.InstanceCost(cfg=REF_REGISTRY["llama3.2-3b"], chips=8)
     port_d = port_cost.InstanceCost(cfg=PORT_REGISTRY["llama3.2-3b"],
                                     chips=8, **REF_HW)
