@@ -13,7 +13,12 @@ package. Phases, each of which raises on a failed check (exit code 1):
 2. Kernel checks: every kernel on the engines' paths against its plain
    PyTorch version on the card, at the main-path shapes of full-width
    llama3.2-3b (paged attention kernels) and zamba2-2.7b / mamba2-130m
-   (the SSD scan, dense flash attention), at phase 6's shapes
+   (the SSD scan, dense flash attention), Zamba2-7B's decode step (the
+   slot decode attention kernel: 32 slots of 2048, heads of 224, with
+   lengths drawn like ``zamba2-chat-burst``'s, timed beside SDPA on the
+   pre-gathered cache and its bound, the live K/V bytes once; and at
+   heads of 80 and 128, G of 1 to 48, windows, empty, full and overgrown
+   slots), at phase 6's shapes
    (phi3.5-moe's and llava-next-34b's grouping in both paged kernels;
    hubert-xlarge's non-causal (8, 512, 16, 80) batch in the flash kernel,
    timed beside SDPA and its bound), at phase 8's per-shard shapes (the
@@ -52,7 +57,8 @@ package. Phases, each of which raises on a failed check (exit code 1):
    exact length through the kernel tier (54 ``ssd`` and 9
    ``flash_attention`` launches a prompt, each ``ssd`` call one launch of
    each of its three passes, checked) and 64 tokens each
-   through the fused K=8 path; decode and prefill (one 2048-token
+   through the fused K=8 path (9 ``slot_decode_attention`` launches a
+   decode step, checked); decode and prefill (one 2048-token
    prompt) windows traced as in phase 3; 2 requests through the per-step
    path; then a teacher-forced comparison of the kernel tier against the
    plain tier, beside the plain tier's own spread when only the order of
@@ -1061,6 +1067,135 @@ def run_hybrid_kernel_checks(torch, dev):
     return results
 
 
+def slot_lengths(n, seed):
+    """Context lengths drawn like ``zamba2-chat-burst``'s rows: a prompt of
+    lognormal(5.1, 0.9) tokens in 16..1024 and part of an output of
+    lognormal(5.0, 0.8) tokens in 16..512."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    prompt = np.clip(rng.lognormal(5.1, 0.9, n), 16, 1024).astype(int)
+    out = np.clip(rng.lognormal(5.0, 0.8, n), 16, 512).astype(int)
+    return (prompt + rng.integers(0, out)).tolist()
+
+
+def run_slot_kernel_checks(torch, dev):
+    """The slot decode attention kernel against its plain version in
+    float32 at Zamba2-7B's decode step, at the slot engines' other head
+    dims and groupings and at the edges (empty, one-position, full and
+    overgrown slots, split boundaries, windows), then its time at
+    Zamba2-7B's step beside the plain version's, SDPA's on the
+    pre-gathered cache with a mask of the live positions, and its bound:
+    the live K/V bytes once, q and the output, at 3.35 TB/s."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.slot_attention.ops import slot_decode_attention
+    from repro_torch.models.layers import decode_attention_appended
+    F = torch.nn.functional
+    K = Kernels(torch, dev)
+    bf16, f32 = torch.bfloat16, torch.float32
+    zscale = 112 ** -0.5
+    edges = [0, 1, 255, 256, 257]
+
+    def case(B, KH, G, S, D, dtype, lens):
+        return (K.randn(B, 1, KH * G, D, dtype=dtype),
+                K.randn(B, KH, S, D, dtype=dtype),
+                K.randn(B, KH, S, D, dtype=dtype),
+                K.randn(B, KH, D, dtype=dtype),
+                K.randn(B, KH, D, dtype=dtype),
+                torch.tensor(lens, dtype=torch.int32, device=dev))
+
+    def compare(label, args, window=0, scale=None):
+        q, kc, vc, kn, vn, n = args
+        out = slot_decode_attention(q, kc, vc, kn, vn, prev_len=n,
+                                    window=window, scale=scale)
+        ref = decode_attention_appended(
+            *(t.float() for t in (q, kc, vc, kn, vn)), prev_len=n,
+            window=window, scale=scale)
+        rel, absd = rel_err(out, ref)
+        tol = TOL[str(q.dtype).split(".")[-1]]
+        print(f"  {'slot_decode_attention':24s} {label:48s} rel_err="
+              f"{rel:.3e} abs={absd:.3e} {'ok' if rel <= tol else 'FAIL'}")
+        check(bool(torch.isfinite(out.float()).all()),
+              f"slot_decode_attention {label}: non-finite output")
+        check(rel <= tol, f"slot_decode_attention {label}: kernel disagrees "
+              "with its plain version")
+        return absd
+
+    cases = [
+        (dict(B=8, KH=4, G=2, S=700, D=224, dtype=f32), 300, zscale,
+         "D=224 G=2 window 300 scale, f32"),
+        (dict(B=9, KH=32, G=1, S=4096, D=80, dtype=bf16), 0, None,
+         "zamba2-2.7b D=80 G=1 S=4096, bf16"),
+        (dict(B=9, KH=8, G=1, S=4096, D=80, dtype=bf16), 0, None,
+         "zamba2 shard: 8/8 D=80, bf16"),
+        (dict(B=9, KH=8, G=3, S=4096, D=128, dtype=bf16), 0, None,
+         "llama D=128 G=3 S=4096, bf16"),
+        (dict(B=9, KH=8, G=3, S=1024, D=128, dtype=f32), 100, None,
+         "llama D=128 G=3 window 100, f32"),
+        (dict(B=9, KH=8, G=4, S=2048, D=128, dtype=bf16), 0, None,
+         "phi3.5-moe D=128 G=4, bf16"),
+        (dict(B=9, KH=8, G=7, S=2048, D=128, dtype=bf16), 0, None,
+         "llava D=128 G=7, bf16"),
+        (dict(B=9, KH=1, G=48, S=2048, D=128, dtype=bf16), 37, None,
+         "granite MQA D=128 G=48 window 37, bf16"),
+        (dict(B=9, KH=2, G=1, S=128, D=64, dtype=bf16), 0, None,
+         "D=64 G=1 S=128, bf16"),
+    ]
+    for kw, window, scale, label in cases:
+        S = kw["S"]
+        lens = (edges + [S - 1, S, S + 300, 500])[:kw["B"]]
+        compare(label, case(**kw, lens=lens), window, scale)
+    # -- Zamba2-7B's decode step: 32 slots of 2048, 32 heads of 224, the
+    # lengths drawn like the cell's, and one with every edge --
+    B, KH, S, D = 32, 32, 2048, 224
+    edge_lens = edges + [2047, 2048, 2300] + slot_lengths(B - 8, 7)
+    compare("zamba2-7b edges B=32 S=2048 D=224, bf16",
+            case(B, KH, 1, S, D, bf16, edge_lens), scale=zscale)
+    lens = slot_lengths(B, 11)
+    zm = case(B, KH, 1, S, D, bf16, lens)
+    err = compare("main: zamba2-7b B=32 S=2048 D=224, bf16", zm,
+                  scale=zscale)
+    q, kc, vc, kn, vn, n = zm
+    # SDPA on the pre-gathered cache: the new token appended, a mask of
+    # the live positions
+    kf, vf = (torch.cat([c, x[:, :, None]], 2) for c, x in ((kc, kn),
+                                                             (vc, vn)))
+    pos = torch.arange(S + 1, device=dev)
+    mask = ((pos < n[:, None]) | (pos == S))[:, None, None, :]
+    qt = q.transpose(1, 2)
+    rows = sum(min(x, S) + 1 for x in lens)          # per (b, kh) summed
+    nbytes = rows * KH * D * 2 * 2 + 2 * B * KH * D * 2
+    flops = 4 * rows * KH * D
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    lib = _build.library("slot_attention")
+    hpb, tile, stages = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    ring = lib.slot_attention_geometry(1, D, 1, ctypes.byref(hpb),
+                                       ctypes.byref(tile),
+                                       ctypes.byref(stages))
+    geometry = {"heads_per_block": hpb.value, "tile": tile.value,
+                "stages": stages.value, "ring_bytes": ring}
+    print(f"  geometry slot_decode_attention D={D} bf16 G=1: {geometry}; "
+          f"live rows {rows} of {B * (S + 1)}, mean context "
+          f"{sum(lens) / B:.1f}")
+    r = dict(max_abs_err=err, bound_ms=bound, bound_by="bytes", flops=flops,
+             geometry=geometry, lens=lens,
+             **K.timings(
+                 lambda: slot_decode_attention(q, kc, vc, kn, vn,
+                                               prev_len=n, scale=zscale),
+                 lambda: decode_attention_appended(q, kc, vc, kn, vn,
+                                                   prev_len=n, scale=zscale),
+                 lambda: F.scaled_dot_product_attention(
+                     qt, kf, vf, attn_mask=mask, scale=zscale)))
+    r["share"] = bound / r["device_ms"]
+    print(f"  slot_decode_attention share of its bound by device time "
+          f"{r['share']:.3f}")
+    results = {"slot_decode_attention": r}
+    torch.cuda.synchronize()
+    print_times(results)
+    return results
+
+
 # ---------------------------------------------------------------------------
 # phase 3: the engine at full width
 # ---------------------------------------------------------------------------
@@ -1111,6 +1246,7 @@ def drive(torch, engine, reqs, counts=None):
 
 # device kernel name -> the port kernel (wrapper) it belongs to
 PORT_KERNELS = (("paged_decode_kernel", "paged decode attention"),
+                ("slot_decode_kernel", "slot_decode_attention"),
                 ("paged_prefill_kernel", "paged_flash_prefill"),
                 ("paged_prefill_tc_kernel", "paged_flash_prefill"),
                 ("flash_kernel", "flash_attention"),
@@ -1583,6 +1719,7 @@ def run_hybrid_engine(torch, dev):
     lens = [200, 300, 512, 777, 1024, 1300, 1800, 2048]
     eng = ContinuousBatchingEngine(model, params, EngineConfig(**ecfg),
                                    device=dev)
+    steps = count_decode_steps(eng.backend)
     torch.cuda.reset_peak_memory_stats()
     backends.reset_transfer_stats()
     _build.reset_launches()
@@ -1590,7 +1727,8 @@ def run_hybrid_engine(torch, dev):
     fused_launches = dict(_build.LAUNCHES)
     pass_launches = dict(_build.PASS_LAUNCHES)
     transfers = dict(backends.TRANSFER_STATS)
-    print(f"  fused path launches {fused_launches} transfers {transfers}")
+    print(f"  fused path launches {fused_launches} transfers {transfers}; "
+          f"{steps['n']} decode steps")
     print(f"  ssd launches by pass {pass_launches}")
     check(len(outs) == 8, f"{len(outs)} of 8 requests finished")
     for o in outs:
@@ -1612,6 +1750,11 @@ def run_hybrid_engine(torch, dev):
     check(fused_launches["flash_attention"] == n_shared * len(lens),
           f"flash_attention launched {fused_launches['flash_attention']} "
           f"times, expected {n_shared} for each of {len(lens)} prompts")
+    check(steps["n"] > 0 and fused_launches["slot_decode_attention"]
+          == n_shared * steps["n"],
+          f"slot_decode_attention launched "
+          f"{fused_launches['slot_decode_attention']} times, expected "
+          f"{n_shared} for each of {steps['n']} decode steps")
     ttft = sorted(o.metrics.ttft for o in outs)
     metrics = {
         "prefill_tokens": eng.stats["prefill_tokens"],
@@ -1685,7 +1828,9 @@ def run_hybrid_engine(torch, dev):
     metrics["greedy_match_share"] = share
     metrics["ssd_launches_by_pass"] = pass_launches
     launches = {"ssd": fused_launches["ssd"],
-                "flash_attention": fused_launches["flash_attention"]}
+                "flash_attention": fused_launches["flash_attention"],
+                "slot_decode_attention":
+                    fused_launches["slot_decode_attention"]}
     return launches, metrics
 
 
@@ -1704,6 +1849,18 @@ SPEC_TOKENS = 4
 # (scripts/spec_acceptance_probe.py), and the bf16 runs report their
 # acceptance by sampling mode without a bound
 SPEC_MIN_ACCEPTANCE = 0.9
+
+
+def count_decode_steps(backend):
+    """Counts the slot backend's decode steps (each steps every slot), op
+    by op, in the returned dict's ``n``."""
+    steps = {"n": 0}
+
+    def around(fn, *a, **kw):
+        steps["n"] += 1
+        return fn(*a, **kw)
+    wrap(backend, "_decode_step", around)
+    return steps
 
 
 def wrap(obj, name, around):
@@ -1869,8 +2026,7 @@ def profile_spec_round(torch, eng, reqs):
 SPEC_ENGINE = dict(backend="paged", use_kernel=True, page_size=64,
                    max_slots=8, max_seq_len=4096, enable_prefix_cache=True,
                    chunked_prefill_budget=512, decode_steps_per_sync=8)
-# the slot engine's decode reads every slot's whole cache row in float32
-# (ROADMAP 9-open), so its rows are cut to what these requests need
+# the slot engine's rows cut to what these requests need
 SLOT_SPEC_ENGINE = dict(backend="slots", max_slots=4, max_seq_len=1024,
                         enable_prefix_cache=False, chunked_prefill_budget=0,
                         spec_tokens=SPEC_TOKENS)
@@ -3553,6 +3709,7 @@ def run_tp_hybrid(torch, dev, one_device):
           "8d: the ssm state is not whole or k/v not split over the heads")
     check(len({c["ssm"].data_ptr() for c in be.cache_shards}) == TP_SHARDS,
           "8d: the shards share one ssm state")
+    steps = count_decode_steps(be)
     torch.cuda.reset_peak_memory_stats()
     backends.reset_transfer_stats()
     _build.reset_launches()
@@ -3566,9 +3723,12 @@ def run_tp_hybrid(torch, dev, one_device):
           "8d: the fused path moved logits to the host")
     print(f"  main path launches {launches}: {n} prompts x {L} layers x "
           f"{TP_SHARDS} shards (ssd), x {G} shared-block applications "
-          f"(flash_attention); ssd passes {passes} {lap('main')}")
-    tp_launch_check("8d", launches, {"ssd": n * L * TP_SHARDS,
-                                     "flash_attention": n * G * TP_SHARDS})
+          f"(flash_attention), {steps['n']} decode steps x {G} x "
+          f"{TP_SHARDS} (slot_decode_attention); ssd passes {passes} "
+          f"{lap('main')}")
+    tp_launch_check("8d", launches, {
+        "ssd": n * L * TP_SHARDS, "flash_attention": n * G * TP_SHARDS,
+        "slot_decode_attention": steps["n"] * G * TP_SHARDS})
     check(all(passes[k] == launches["ssd"] for k in (
         "ssd_chunk_state", "ssd_state_pass", "ssd_chunk_scan"))
         and passes["ssd_fma"] == 0,
@@ -4526,6 +4686,7 @@ def main() -> int:
 
     timing = run_kernel_checks(torch, dev)
     timing.update(run_hybrid_kernel_checks(torch, dev))
+    timing.update(run_slot_kernel_checks(torch, dev))
     launches, metrics = run_engine(torch, dev)
     torch.cuda.empty_cache()
     hybrid_launches, hybrid_metrics = run_hybrid_engine(torch, dev)
@@ -4571,10 +4732,14 @@ def main() -> int:
                             "src/repro/kernels/flash_attention/kernel.py:186"),
         "ssd": ("src/repro_torch/csrc/ssd.cu",
                 "src/repro/kernels/ssd/kernel.py:65"),
+        "slot_decode_attention": (
+            "src/repro_torch/csrc/slot_attention.cu",
+            "none: src/repro/models/layers.py decode_attention_appended is "
+            "jnp"),
     }
     # launches: paged_attention from phase 3's per-step path, the other two
-    # paged kernels from its fused main path, ssd and flash_attention from
-    # phase 4's main path
+    # paged kernels from its fused main path, ssd, flash_attention and
+    # slot_decode_attention from phase 4's main path
     # per-shard launches under a mesh: phase 8a's fused path and per-step
     # path, phase 8e's two dbrx-132b engines' fused paths, phase 8d's
     # zamba2 main path (ssd, flash_attention); the paged prefill kernel
@@ -4586,7 +4751,9 @@ def main() -> int:
         "paged_attention":
             tp_metrics["llama"]["launches_per_step"]["paged_attention"],
         "ssd": tp_metrics["hybrid"]["launches"]["ssd"],
-        "flash_attention": tp_metrics["hybrid"]["launches"]["flash_attention"]}
+        "flash_attention": tp_metrics["hybrid"]["launches"]["flash_attention"],
+        "slot_decode_attention":
+            tp_metrics["hybrid"]["launches"]["slot_decode_attention"]}
     kernels = []
     for name, (source, repl) in replaces.items():
         r = timing[name]

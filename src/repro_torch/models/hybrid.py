@@ -320,13 +320,16 @@ def serve_prefill(stack, tokens, *, max_len, window=0, use_kernel=False):
     return stack.head(h[:, S - 1]), caches
 
 
-def serve_decode_step(stack, tokens, caches, lens, *, window=0):
+def serve_decode_step(stack, tokens, caches, lens, *, window=0,
+                      use_kernel=False):
     """One decode step of every row through a ``ServeStack``: tokens (B,)
     and ``lens`` (B,), the lengths before this token, on the lead device;
     ``caches`` each shard's {ssm, conv[, k, v]}, updated IN PLACE (each
     mixer's state after its layer, the shared block's new kv after the
     loop, as :func:`decode_step`). The caller advances the lengths.
-    Returns float32 logits (B, V) on the lead device."""
+    ``use_kernel``: the shared block's attention through the slot decode
+    kernel where each shard holds whole heads (``ServeStack.
+    decode_attend``). Returns float32 logits (B, V) on the lead device."""
     cfg = stack.cfg
     lens_s = stack.replicate(lens)
     new = [([], []) for _ in range(stack.n)]
@@ -345,7 +348,7 @@ def serve_decode_step(stack, tokens, caches, lens, *, window=0):
 
     def cache_attend(g):
         return stack.decode_attend([(c["k"][g], c["v"][g]) for c in caches],
-                                   lens, lens_s, new, window)
+                                   lens, lens_s, new, window, use_kernel)
 
     h = stack.embed(tokens[:, None])
     positions = lens[:, None].long()

@@ -32,6 +32,7 @@ from repro_torch.models.layers import (attention_layer,
                                        split_heads_rope)
 from repro_torch.models.mamba2 import mamba_layer_sharded
 from repro_torch.models.moe import init_moe, moe_ffn, moe_ffn_sharded
+from repro_torch.serving.tracing import RECORDER
 from repro_torch.tree import tree_leaves
 
 
@@ -472,23 +473,36 @@ class ServeStack:
                            (ap["adapter_in"], ap["adapter_out"]))
         return t @ ap["linear"]
 
-    def decode_attend(self, kv, lens, lens_s, new, window=0):
+    def decode_attend(self, kv, lens, lens_s, new, window=0,
+                      use_kernel=False):
         """The ``attend`` of :meth:`block` for one decode step over a slot
         cache: ``kv`` the layer's per-shard (k, v) caches (B, KH_s, S,
         hd_s); ``lens`` (B,) lengths before this token on the lead device,
         ``lens_s`` the same on every shard's device; ``new`` per-shard
         (k list, v list) that collect the new token's (B, KH_s, hd_s)
         vectors, for the caller to write after the layer loop; ``window``
-        the sliding window (0: none)."""
+        the sliding window (0: none). ``use_kernel``: where each shard
+        holds whole heads, the attention through the slot decode kernel's
+        wrapper, once a shard; the head_dim split attends by the plain
+        split path. Counts ``slot_decode_attn.kernel`` or ``.plain`` once
+        an application."""
         def attend(qkv):
             for (_, k, v), (nk, nv) in zip(qkv, new):
                 nk.append(k[:, 0])
                 nv.append(v[:, 0])
+            kernel = use_kernel and self.kv_split == "heads"
+            RECORDER.count("slot_decode_attn.kernel" if kernel
+                           else "slot_decode_attn.plain")
             if self.kv_split == "heads":
-                return [decode_attention_appended(
-                    q, kc, vc, k[:, 0], v[:, 0], prev_len=n, window=window,
-                    scale=self.cfg.attn_scale)
-                    for (q, k, v), (kc, vc), n in zip(qkv, kv, lens_s)]
+                attn = decode_attention_appended
+                if kernel:
+                    # the wrapper's module imports the layers module for
+                    # its plain version
+                    from repro_torch.kernels.slot_attention.ops import \
+                        slot_decode_attention as attn
+                return [attn(q, kc, vc, k[:, 0], v[:, 0], prev_len=n,
+                             window=window, scale=self.cfg.attn_scale)
+                        for (q, k, v), (kc, vc), n in zip(qkv, kv, lens_s)]
 
             def context(s):
                 (kc, vc), (_, k, v) = kv[s], qkv[s]

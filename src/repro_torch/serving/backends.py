@@ -51,14 +51,17 @@ Three decode calls, as in the reference:
 * False: the plain versions directly (the reference tier), with the
   per-step pool write of the reference's ``_fused_impl``.
 
-On the slot backend ``use_kernel`` picks the prefill tier: True runs a
-one-shot prompt's SSD scans (``ssd``) and its attention without a cache
-(``flash_attention``) through the hand-written kernels; False runs the
-plain versions. Its chunked prefill (attention families) and its decode
-run plain PyTorch in both tiers, as the reference's do; for the published
-hybrid layout on one CUDA device the kernel tier replays its decode
-iteration as a CUDA graph (``_StepGraph``, the helper ``_DecodeGraph``
-extends).
+On the slot backend ``use_kernel`` picks the tier of prefill and decode
+attention: True runs a one-shot prompt's SSD scans (``ssd``) and its
+attention without a cache (``flash_attention``), and each decode step's
+attention over the slot caches plus the new token
+(``slot_decode_attention``, where each shard holds whole heads), through
+the hand-written kernels; False runs the plain versions. Its chunked
+prefill (attention families), the decode step's mixers and its head_dim
+split attention run plain PyTorch in both tiers, as the reference's do;
+for the published hybrid layout on one CUDA device the kernel tier
+replays its decode iteration as a CUDA graph (``_StepGraph``, the helper
+``_DecodeGraph`` extends).
 
 The paged backend also swaps a preempted sequence's KV to host memory and
 back (``swap_out`` / ``swap_in``).
@@ -492,7 +495,8 @@ class SlotBackend:
         st, lens = self.stack, self.cache["len"]
         if self.cfg.family not in ATTENTION_FAMILIES:
             logits = serve_decode_step(st, tokens, self.cache_shards, lens,
-                                       window=self.window)
+                                       window=self.window,
+                                       use_kernel=self.use_kernel)
             lens.add_(1)            # in place: a decode graph replays it
             return logits
         lens_s = st.replicate(lens)
@@ -500,7 +504,8 @@ class SlotBackend:
         h = st.embed(tokens[:, None])
         for i in range(self.cfg.num_layers):
             h = st.block(h, i, lens[:, None].long(),
-                         st.decode_attend(self._kv(i), lens, lens_s, new))
+                         st.decode_attend(self._kv(i), lens, lens_s, new,
+                                          use_kernel=self.use_kernel))
         for c, (nk, nv), n in zip(self.cache_shards, new, lens_s):
             _scatter_new_kv(c["k"], torch.stack(nk), n)
             _scatter_new_kv(c["v"], torch.stack(nv), n)
@@ -522,10 +527,13 @@ class SlotBackend:
         if self._graphable:
             if self._graph is None:
                 apps = self.cfg.attn_layer_count()
+                tier = "kernel" if self.use_kernel else "plain"
                 self._graph = _StepGraph(
                     self.device, self.max_slots, self._iteration,
                     rewind=False,
-                    counts={"shared_block.apps": apps} if apps else None)
+                    counts={"shared_block.apps": apps,
+                            f"slot_decode_attn.{tier}": apps}
+                    if apps else None)
             g = self._graph
             g.bind(st)
             return g.run(K), g.produced, g.done, g.st
@@ -1411,8 +1419,11 @@ class _StepGraph:
     cannot be stepped twice) and counts ``decode_graph.eager``. A replay
     adds the launches the recorded iteration made to ``_build.LAUNCHES``
     and counts ``decode_graph.replay`` and ``counts`` (what the recorded
-    iteration would have counted). Off CUDA nothing is captured and an
-    iteration is a direct call, op by op."""
+    iteration would have counted). The graph holds the workspace that the
+    port's decode kernels cached for its stream, so that a later call
+    which grows it cannot free what the recorded launches point at. Off
+    CUDA nothing is captured and an iteration is a direct call, op by
+    op."""
 
     def __init__(self, device, B: int, forward, *, rewind: bool,
                  counts: dict | None = None):
@@ -1426,6 +1437,7 @@ class _StepGraph:
         self.graph = None
         self.stream = None
         self.launches = {}
+        self.workspace = None   # the decode kernels', while the graph lives
 
     def bind(self, st: dict) -> None:
         """A call's decode state into the static buffers."""
@@ -1506,6 +1518,7 @@ class _StepGraph:
                          if n != warm.get(name, 0)}
         _build.LAUNCHES.update(before if self.rewind else warm)
         self.graph = graph
+        self.workspace = cached_workspace(dev, s.cuda_stream)
         RECORDER.count("decode_graph.capture")
         if not self.rewind:
             RECORDER.count("decode_graph.eager")
@@ -1522,8 +1535,7 @@ class _DecodeGraph(_StepGraph):
     paged kernel reads its lengths on the device and runs at
     ``kt_cap = K_cap``; tail rows past a slot's length are never read, and
     the split-K schedule depends on the length alone, so K_cap rows give
-    what K rows give. The captured graph holds its stream's paged-kernel
-    workspace."""
+    what K rows give."""
 
     def __init__(self, backend: PagedBackend):
         B, dev = backend.max_slots, backend.device
@@ -1535,7 +1547,6 @@ class _DecodeGraph(_StepGraph):
         self.bidx = torch.arange(B, device=dev)
         self.tails = None
         self.k_cap = 0
-        self.workspace = None       # the paged kernel's, while the graph lives
 
     def _forward(self, st, tokens, n_gen, done, produced):
         return self.backend._kernel_step(
@@ -1562,9 +1573,3 @@ class _DecodeGraph(_StepGraph):
         for dst, src in ((self.tables, tables), (self.lens, lens)):
             if src is not dst:
                 dst.copy_(src)
-
-    def _capture(self) -> bool:
-        warm_up = super()._capture()
-        self.workspace = cached_workspace(self.device,
-                                          self.stream.cuda_stream)
-        return warm_up

@@ -3,8 +3,10 @@ scan and its decode step with B and C in groups, the one-group scan as it
 was, ``flash_attention`` with a softmax scale, rotate-half RoPE, the
 parameter counts against the tree ``init_params`` makes, the slot
 backend's decode-graph buffers against its eager loop, and the new
-records; on the card (``-m card``, ``--noconftest``), the slot decode
-graph replayed against the eager loop.
+records, the slot backend's kernel tier against its reference tier and
+the count of its decode attention; on the card (``-m card``,
+``--noconftest``), the slot decode graph replayed against the eager loop,
+and its replays' launches and counts of the slot decode kernel.
 
 Tolerances: a grouped scan against one-group scans over each group's
 heads, 1e-5 of the scale (float32, the same products summed in another
@@ -230,6 +232,63 @@ def test_records_of_the_hybrid_slot_path(tiny_params):
         len(out) + iters)
 
 
+@pytest.mark.parametrize("arch", ["tiny-zamba2", "zamba2-2.7b",
+                                  "llama3.2-3b"])
+def test_slot_kernel_tier_serves_the_reference_tier_tokens(arch,
+                                                           tiny_params):
+    """The published layout, the ``attn_every`` hybrid and an attention
+    family (G = 2) on the slot backend: the kernel tier's decode attention
+    (its wrapper runs the plain version on the CPU) serves the reference
+    tier's tokens."""
+    from repro_torch.configs import REGISTRY, reduced
+    if arch == TINY.name:
+        cfg, params = TINY, tiny_params
+    else:
+        cfg = reduced(REGISTRY[arch])
+        params = make_model(cfg).init_params(
+            torch.Generator().manual_seed(1))
+    outs = [_serve(ContinuousBatchingEngine(
+        make_model(cfg), params,
+        EngineConfig(backend="slots", use_kernel=use_kernel, max_slots=4,
+                     max_seq_len=128, decode_steps_per_sync=4),
+        device="cpu")) for use_kernel in (True, False)]
+    assert outs[0] == outs[1]
+
+
+@pytest.mark.parametrize("graphable", [False, True])
+@pytest.mark.parametrize("use_kernel", [True, False])
+def test_slot_decode_attention_is_counted_per_application(tiny_params,
+                                                          use_kernel,
+                                                          graphable):
+    """``slot_decode_attn.kernel`` (kernel tier) or ``.plain`` once for
+    each application of a tied block in each decode iteration, eager or
+    through the decode graph's static buffers; the graph hands the same
+    count to its replays."""
+    eng = ContinuousBatchingEngine(
+        make_model(TINY), tiny_params,
+        EngineConfig(backend="slots", use_kernel=use_kernel, max_slots=4,
+                     max_seq_len=128, decode_steps_per_sync=4),
+        device="cpu")
+    eng.backend._graphable = graphable
+    RECORDER.enable()
+    RECORDER.refresh()
+    try:
+        _serve(eng)
+    finally:
+        RECORDER.disable()
+        RECORDER.refresh()
+    c = RECORDER.counters
+    apps = len(TINY.hybrid_layer_ids)
+    tier, other = ("kernel", "plain") if use_kernel else ("plain", "kernel")
+    iters = c["decode_graph.eager"] + c.get("decode_graph.replay", 0)
+    assert iters > 0
+    assert c[f"slot_decode_attn.{tier}"] == apps * iters
+    assert f"slot_decode_attn.{other}" not in c
+    if graphable:
+        assert eng.backend._graph.counts == {
+            "shared_block.apps": apps, f"slot_decode_attn.{tier}": apps}
+
+
 @pytest.fixture
 def card():
     if not torch.cuda.is_available():
@@ -259,3 +318,36 @@ def test_card_slot_graph_replay_matches_eager(card):
     (got, be), (want, _) = runs
     assert got == want
     assert be._graph.graph is not None
+
+
+@pytest.mark.card
+def test_card_slot_graph_replays_count_the_kernel(card):
+    """The replayed iterations launch the slot decode kernel once an
+    application, and count it as the eager iteration does."""
+    from repro_torch.kernels import _build
+    cfg = dataclasses.replace(
+        TINY, param_dtype="bfloat16", head_dim=64, num_heads=2,
+        num_kv_heads=2,
+        ssm=dataclasses.replace(TINY.ssm, d_state=64, head_dim=64))
+    model = make_model(cfg)
+    params = model.init_params(torch.Generator(device=card).manual_seed(0))
+    eng = ContinuousBatchingEngine(
+        model, params,
+        EngineConfig(backend="slots", use_kernel=True, max_slots=4,
+                     max_seq_len=128, decode_steps_per_sync=4),
+        device=card)
+    _build.reset_launches()
+    RECORDER.enable()
+    RECORDER.refresh()
+    try:
+        _serve(eng)
+    finally:
+        RECORDER.disable()
+        RECORDER.refresh()
+    c = RECORDER.counters
+    apps = len(cfg.hybrid_layer_ids)
+    iters = c["decode_graph.eager"] + c["decode_graph.replay"]
+    assert c["decode_graph.replay"] > 0
+    assert c["slot_decode_attn.kernel"] == apps * iters
+    assert "slot_decode_attn.plain" not in c
+    assert _build.LAUNCHES["slot_decode_attention"] == apps * iters
