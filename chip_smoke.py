@@ -2286,11 +2286,18 @@ EMBED_MIN_COS = 0.999
 
 
 def count_fused_steps(PagedBackend):
-    """Shadow ``PagedBackend._fused_kernel_impl`` (every engine of the
-    class) to record each call's K. Returns (list of K, original)."""
+    """Shadow ``PagedBackend.fused_decode`` (every engine of the class) to
+    record the steps each kernel-tier call ran (``K_run``, its tokens'
+    first axis); reference-tier calls go uncounted. Returns (list of
+    K_run, original)."""
     steps = []
-    orig = wrap(PagedBackend, "_fused_kernel_impl",
-                lambda fn, *a: (steps.append(a[-1]), fn(*a))[1])
+
+    def around(fn, backend, *a, **kw):
+        out = fn(backend, *a, **kw)
+        if backend.use_kernel:
+            steps.append(out[0].shape[0])
+        return out
+    orig = wrap(PagedBackend, "fused_decode", around)
     return steps, orig
 
 
@@ -2410,7 +2417,7 @@ def run_moe(torch, dev):
                                           model=cfg.name),
                             EngineConfig(**FAMILY_ENGINE), device=dev)
     launches = dict(_build.LAUNCHES)
-    PagedBackend._fused_kernel_impl = orig
+    PagedBackend.fused_decode = orig
     check_outputs("moe run_batch", outs, 8, 32, V)
     check(backends.TRANSFER_STATS["decode_logits_transfers"] == 0,
           "moe run_batch: the fused path moved logits to the host")
@@ -2648,7 +2655,7 @@ def run_vlm(torch, dev):
     outs, t_pf, t_dec, n_dec = drive(torch, eng, make_requests(
         4, 512, [100, 300, 500, 700], 16, V, seed=4, model=cfg.name))
     launches = dict(_build.LAUNCHES)
-    PagedBackend._fused_kernel_impl = orig
+    PagedBackend.fused_decode = orig
     check_outputs("vlm paged engine", outs, 4, 16, V)
     paged_launch_checks("vlm paged engine", launches, L,
                         eng.stats["prefill_chunks"], sum(steps))
@@ -3403,7 +3410,7 @@ def run_tp_llama(torch, dev, one_device):
     outs, t_pf, t_dec, n_dec = drive(torch, eng, make_requests(
         8, 1024, tails, 64, V, seed=0))
     launches = dict(_build.LAUNCHES)
-    PagedBackend._fused_kernel_impl = orig
+    PagedBackend.fused_decode = orig
     check_outputs("8a fused path", outs, 8, 64, V)
     check(backends.TRANSFER_STATS["decode_logits_transfers"] == 0,
           "8a: the fused path moved logits to the host")
@@ -3582,7 +3589,7 @@ def run_tp_moe(torch, dev):
     outs, _, t_dec, n_dec = drive(torch, eng, make_requests(
         4, 512, [64, 128, 192, 256], 16, V, seed=4, model=cfg.name))
     launches = dict(_build.LAUNCHES)
-    PagedBackend._fused_kernel_impl = orig
+    PagedBackend.fused_decode = orig
     check_outputs("8c", outs, 4, 16, V)
     check(backends.TRANSFER_STATS["decode_logits_transfers"] == 0,
           "8c: the fused path moved logits to the host")
@@ -4059,7 +4066,7 @@ def run_tp_fsdp(torch, dev):
                 len(FSDP_LENS), 0, FSDP_LENS, FSDP_TOKENS, V, seed=8,
                 model=cfg.name))
         finally:
-            PagedBackend._fused_kernel_impl = orig
+            PagedBackend.fused_decode = orig
         launches = dict(_build.LAUNCHES)
         drive_gathers = dict(sharding.GATHER_STATS)
         check_outputs(f"8e {name}", outs, len(FSDP_LENS), FSDP_TOKENS, V)

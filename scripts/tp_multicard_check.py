@@ -120,7 +120,7 @@ def main() -> int:
     outs = eng.run_to_completion()
     sync()
     wall = time.perf_counter() - t0
-    PagedBackend._fused_kernel_impl = orig
+    PagedBackend.fused_decode = orig
     launches = dict(_build.LAUNCHES)
     cs.check_outputs("multi-card fused path", outs, 8, 64, V)
     cs.check(backends.TRANSFER_STATS["decode_logits_transfers"] == 0,

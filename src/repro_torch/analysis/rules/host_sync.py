@@ -4,9 +4,11 @@ The fused decode path's contract is that logits (and everything else big)
 never cross to the host mid-loop: ``TRANSFER_STATS`` asserts it at run
 time for the logits; this rule enforces the whole class statically. The
 hot set is the device loops of the serving backends -- the methods named
-in :attr:`HostSyncRule.roots` (``_fused_impl``, ``_fused_kernel_impl``
-and ``_verify_forward`` of both backends in ``serving/backends.py``) --
-and every function or method they reach, transitively: a bare name or a
+in :attr:`HostSyncRule.roots` (in ``serving/backends.py``: the fused
+decode loop ``_StepGraph.run``, the iteration bodies it runs,
+``SlotBackend._iteration`` and ``PagedBackend._kernel_step`` and
+``_reference_step``, and ``_verify_forward`` of both backends) -- and
+every function or method they reach, transitively: a bare name or a
 ``self.`` method of the same module (by bare name: conservative), a name
 imported from another ``repro_torch`` module (resolved through the
 imports, re-exports followed), and ``obj.m(...)`` where ``m`` is a method
@@ -78,12 +80,29 @@ def _is_simple_coercion_arg(node: ast.AST) -> bool:
                                                           ast.Name)
 
 
+def _classes(tree: ast.Module) -> dict[str, ast.ClassDef]:
+    return {n.name: n for n in ast.walk(tree) if isinstance(n, ast.ClassDef)}
+
+
+def _defined_roots(roots, functions, classes) -> list[str]:
+    """The bare names of the ``roots`` a module defines: a bare root where
+    it has a function of that name, ``Class.method`` where its class
+    ``Class`` has that method (a root whose bare name is common)."""
+    out = []
+    for root in roots:
+        cls, _, name = root.rpartition(".")
+        if name in functions and (not cls or (
+                cls in classes and name in collect_functions(classes[cls]))):
+            out.append(name)
+    return out
+
+
 def hot_set(tree: ast.Module, roots) -> dict[str, list[ast.FunctionDef]]:
-    """Functions reachable from the ``roots`` (bare names) through
-    same-module calls, by bare name."""
+    """Functions reachable from the ``roots`` (bare names, or
+    ``Class.method``) through same-module calls, by bare name."""
     table = collect_functions(tree)
     hot: dict[str, list[ast.FunctionDef]] = {}
-    frontier = [n for n in roots if n in table]
+    frontier = _defined_roots(roots, table, _classes(tree))
     while frontier:
         name = frontier.pop()
         if name in hot:
@@ -120,10 +139,8 @@ class _Tree:
                 tree = ast.parse(f.read_text(encoding="utf-8"))
             except (OSError, SyntaxError):
                 continue
-            classes = {n.name: n for n in ast.walk(tree)
-                       if isinstance(n, ast.ClassDef)}
             self.mods[f] = (ImportMap(tree), collect_functions(tree),
-                            classes)
+                            _classes(tree))
 
     def module_file(self, parts: list[str]) -> Path | None:
         base = self.root.joinpath(*parts)
@@ -158,13 +175,13 @@ class _Tree:
         return None
 
     def hot(self, roots) -> dict[Path, set[str]]:
-        """Every function the ``roots`` (bare names, in whichever modules
-        define them) reach, by file and bare name."""
+        """Every function the ``roots`` (as :func:`hot_set` takes them, in
+        whichever modules define them) reach, by file and bare name."""
         hot: dict[Path, set[str]] = {}
         methods: dict[str, set[Path]] = {}      # of the classes in reach
         seen_classes: set[tuple[Path, str]] = set()
-        frontier = [(f, n) for f, (_, fns, _) in self.mods.items()
-                    for n in roots if n in fns]
+        frontier = [(f, n) for f, (_, fns, cls) in self.mods.items()
+                    for n in _defined_roots(roots, fns, cls)]
         pending: list[tuple[ast.Call, Path]] = []
 
         def reach_classes(f: Path) -> None:
@@ -219,10 +236,11 @@ class HostSyncRule(Rule):
     name = "host-sync-in-hot-path"
     description = ("no .item()/.tolist()/.cpu()/.numpy()/.to('cpu')/"
                    "synchronize/int()/float() host syncs in the backends' "
-                   "device loops (_fused_impl, _fused_kernel_impl, "
-                   "_verify_forward) and what they call, across the "
-                   "port's modules")
-    roots = ("_fused_impl", "_fused_kernel_impl", "_verify_forward")
+                   "device loops (_StepGraph.run, _iteration, _kernel_step, "
+                   "_reference_step, _verify_forward) and what they call, "
+                   "across the port's modules")
+    roots = ("_StepGraph.run", "_iteration", "_kernel_step",
+             "_reference_step", "_verify_forward")
 
     def __init__(self):
         # package root -> its hot set by file

@@ -23,11 +23,16 @@ Three decode calls, as in the reference:
 * ``decode_batch(tokens)`` -- legacy host-driven step: one forward, the full
   ``(max_slots, V)`` logits come back to the host and the engine samples
   there (counted in ``TRANSFER_STATS``).
-* ``fused_decode(K, host_state)`` -- K decode steps as a Python loop of
-  torch ops on the device, each step fusing forward + seeded top-p sampling
-  + stop/length checks; only ``(K, max_slots)`` token ids and the
-  ``produced`` / ``done`` vectors cross to the host, once per call. Logits
-  never leave the device.
+* ``fused_decode(K, host_state)`` -- K decode steps on the device, each
+  fusing forward + seeded top-p sampling + stop/length checks; only
+  ``(K, max_slots)`` token ids and the ``produced`` / ``done`` vectors
+  cross to the host, once per call. Logits never leave the device. One
+  loop, :class:`_StepGraph`, runs the K steps of every backend and tier
+  over static buffers; each backend gives only its step
+  (``SlotBackend._iteration``, ``PagedBackend._kernel_step`` or
+  ``_reference_step``). Where :func:`_captures_decode` holds, the loop
+  captures the step once as a CUDA graph and replays it; elsewhere it
+  issues the step op by op.
 * ``spec_verify(draft_tokens, host_state)`` -- speculative decoding's
   verify round (attention families): ONE forward feeds each slot its last
   token and the k draft tokens, writes their KV at ``len..len+k``, attends
@@ -44,10 +49,9 @@ Three decode calls, as in the reference:
   ``fused_decode_attention`` over committed pages plus (L, B, K, KH, hd)
   tail buffers: nothing is written to the pool inside the K-loop and the
   tails are committed with one scatter per call. On one CUDA device the
-  loop's step is captured once as a CUDA graph over static buffers and
-  replayed (``_DecodeGraph``); under a mesh it is issued op by op. On CPU
-  tensors each wrapper runs its kernel's plain version; on CUDA tensors it
-  launches the kernel or raises.
+  step is replayed as a CUDA graph; under a mesh it is issued op by op. On
+  CPU tensors each wrapper runs its kernel's plain version; on CUDA
+  tensors it launches the kernel or raises.
 * False: the plain versions directly (the reference tier), with the
   per-step pool write of the reference's ``_fused_impl``.
 
@@ -60,8 +64,7 @@ the hand-written kernels; False runs the plain versions. Its chunked
 prefill (attention families), the decode step's mixers and its head_dim
 split attention run plain PyTorch in both tiers, as the reference's do;
 for the published hybrid layout on one CUDA device the kernel tier
-replays its decode iteration as a CUDA graph (``_StepGraph``, the helper
-``_DecodeGraph`` extends).
+replays its decode iteration as a CUDA graph.
 
 The paged backend also swaps a preempted sequence's KV to host memory and
 back (``swap_out`` / ``swap_in``).
@@ -259,20 +262,16 @@ def _spec_accept_and_latch(st, logits, draft):
     return targets, produced, done, st
 
 
-def _replays_decode(use_kernel: bool, shard, device) -> bool:
-    """Whether the paged backend replays its fused decode step as a CUDA
-    graph: on the kernel tier, on one device, a CUDA one."""
-    return use_kernel and shard is None and device.type == "cuda"
-
-
-def _slot_replays_decode(cfg, use_kernel: bool, shard, device) -> bool:
-    """Whether the slot backend replays its fused decode iteration as a
-    CUDA graph: as the paged backend, for the published hybrid layout
-    (``hybrid_layer_ids``), whose replay the card tests hold to the eager
-    loop. The ssm family, the ``attn_every`` hybrid and the attention
-    families issue it op by op."""
-    return bool(cfg.hybrid_layer_ids) and _replays_decode(use_kernel, shard,
-                                                          device)
+def _captures_decode(cfg, use_kernel: bool, shard, device, *,
+                     paged: bool) -> bool:
+    """Whether a backend's fused decode iteration is captured as a CUDA
+    graph and replayed (``_StepGraph.capture``): on the kernel tier, on one
+    device, a CUDA one; on the slot backend only at the published hybrid
+    layout (``hybrid_layer_ids``), whose replay the card tests hold to
+    op-by-op issue (the ssm family, the ``attn_every`` hybrid and the
+    attention families issue it op by op there)."""
+    return (use_kernel and shard is None and device.type == "cuda"
+            and (paged or bool(cfg.hybrid_layer_ids)))
 
 
 def _lead_device(device, shard) -> torch.device:
@@ -365,12 +364,16 @@ class SlotBackend:
         self.slot_of: dict[str, int] = {}
         self._dec_st = None         # device-resident per-slot decode state
         self._live = 0              # its active slots (the decode.issue attr)
-        # the published hybrid layout's kernel tier on one CUDA device
-        # replays one iteration of its fused decode loop as a CUDA graph
-        # (made on the first fused call)
-        self._graphable = _slot_replays_decode(cfg, use_kernel, self.shard,
-                                               self.device)
-        self._graph = None
+        # the fused decode loop; a replay counts what the recorded
+        # iteration counted, for each application of a tied block
+        apps = len(cfg.hybrid_layer_ids)
+        tier = "kernel" if use_kernel else "plain"
+        self._graph = _StepGraph(
+            self.device, max_slots, self._iteration,
+            capture=_captures_decode(cfg, use_kernel, self.shard,
+                                     self.device, paged=False),
+            counts={"shared_block.apps": apps,
+                    f"slot_decode_attn.{tier}": apps} if apps else None)
 
     def _put(self, site: str, x, dtype=None):
         """Host array -> tensor on the backend's device; ``site`` names
@@ -518,40 +521,13 @@ class SlotBackend:
         return _logits_to_host(self._decode_step(
             self._put("decode", tokens_by_slot, torch.long)))
 
-    def _fused_impl(self, st, K):
-        """K fused decode+sample+stop-check steps on the device. A slot
-        stops updating (``done``) once it hits its stop token or generation
-        limit; the cache still steps every slot, as the legacy path does
-        for freed slots, so live slots compute exactly what they would
-        alone. Returns (tokens (K, B), produced (B,), done (B,), st)."""
-        if self._graphable:
-            if self._graph is None:
-                apps = self.cfg.attn_layer_count()
-                tier = "kernel" if self.use_kernel else "plain"
-                self._graph = _StepGraph(
-                    self.device, self.max_slots, self._iteration,
-                    rewind=False,
-                    counts={"shared_block.apps": apps,
-                            f"slot_decode_attn.{tier}": apps}
-                    if apps else None)
-            g = self._graph
-            g.bind(st)
-            return g.run(K), g.produced, g.done, g.st
-        B = st["tokens"].shape[0]
-        out = torch.zeros((K, B), dtype=torch.int32, device=self.device)
-        tokens, n_gen = st["tokens"], st["n_gen"]
-        done = torch.zeros((B,), dtype=torch.bool, device=self.device)
-        produced = torch.zeros((B,), dtype=torch.int32, device=self.device)
-        RECORDER.count("decode_graph.eager", K)
-        for i in range(K):
-            tokens, n_gen, done, produced = self._iteration(
-                st, tokens, n_gen, done, produced)
-            out[i] = tokens
-        return out, produced, done, dict(st, tokens=tokens, n_gen=n_gen)
-
     def _iteration(self, st, tokens, n_gen, done, produced):
         """One iteration of the fused loop: the decode step of every slot,
-        then sample and latch. Returns (tokens, n_gen, done, produced)."""
+        then sample and latch. A slot stops updating (``done``) once it
+        hits its stop token or generation limit; the cache still steps
+        every slot, as the legacy path does for freed slots, so live slots
+        compute exactly what they would alone. Returns (tokens, n_gen,
+        done, produced)."""
         logits = self._decode_step(tokens)
         return _sample_and_latch(st, logits, tokens, n_gen, done, produced,
                                  st["active"] & ~done)
@@ -561,19 +537,22 @@ class SlotBackend:
         in one device->host copy. ``host_state`` (when the engine's slot
         composition changed) re-seeds the device-resident state. Returns
         (tokens (K, max_slots), produced, done) numpy arrays."""
+        g = self._graph
         with RECORDER.span("decode.prep"):
             if host_state is not None:
-                self._dec_st = _upload_state(host_state, self.device)
+                self._dec_st = _upload_state(host_state, self.device,
+                                             into=g.st)
                 self._live = int(np.count_nonzero(host_state["active"]))
         if self._dec_st is None:
             raise RuntimeError("fused_decode needs host_state on the first "
                                "call")
         with RECORDER.span("decode.issue", K=K, K_run=K, live=self._live,
                            max_slots=self.max_slots):
-            out, produced, done, self._dec_st = self._fused_impl(
-                self._dec_st, K)
+            g.bind(self._dec_st)
+            out = g.run(K)
+        self._dec_st = g.st
         with RECORDER.span("decode.sync"):
-            out, produced, done = _to_host(out, produced, done)
+            out, produced, done = _to_host(out, g.produced, g.done)
         if RECORDER.on:
             # every slot is stepped each iteration; a live row is one that
             # produced its token there
@@ -750,11 +729,9 @@ class PagedBackend:
         self._live = 0              # its active slots (the decode.issue attr)
         self._dev_tables = None     # device-resident (tables, lens) pair
         self._dev_tables_key = None  # kv.table_version the pair was built at
-        # the kernel tier on one CUDA device replays its fused decode step
-        # as a CUDA graph (made on the first fused call)
-        self._graphable = _replays_decode(use_kernel, self.shard,
-                                          self.device)
-        self._graph = None
+        # the fused decode loop, which holds that pair and the tails
+        self._graph = _DecodeGraph(self, capture=_captures_decode(
+            cfg, use_kernel, self.shard, self.device, paged=True))
 
     @property
     def pools(self) -> dict:
@@ -979,77 +956,35 @@ class PagedBackend:
         return _logits_to_host(logits)
 
     # -- fused decode fast path --------------------------------------------------
-    def _fused_impl(self, st, tables, lens, K):
-        """Reference tier: K fused decode+sample+stop-check steps, each
-        writing the fed token's KV into the pool at position ``lens`` (dead
-        slots route to trash page 0). Returns (tokens (K, B), produced (B,),
-        done (B,), st, lens)."""
+    def _reference_step(self, st, tokens, n_gen, done, produced, tables,
+                        lens0):
+        """One step of the reference tier's fused loop: the fed token's KV
+        written into the pool at position ``lens0 + produced`` (a live
+        step advances the length and ``produced`` together; dead slots
+        route to trash page 0), the forward of every slot, then sample and
+        latch. Returns (tokens, n_gen, done, produced)."""
         ps = self.page_size
-        B = st["tokens"].shape[0]
-        tokens, n_gen = st["tokens"], st["n_gen"]
-        done = torch.zeros((B,), dtype=torch.bool, device=self.device)
-        produced = torch.zeros((B,), dtype=torch.int32, device=self.device)
-        out = torch.zeros((K, B), dtype=torch.int32, device=self.device)
-        last = tables.shape[1] - 1
-        RECORDER.count("decode_graph.eager", K)
-        for i in range(K):
-            live = st["active"] & ~done
-            page_slot = torch.clamp(lens // ps, max=last).long()
-            page_idx = tables.gather(1, page_slot[:, None])[:, 0]
-            page_idx = torch.where(live, page_idx, 0).long()
-            off = torch.where(live, lens % ps, 0).long()
-            logits = self._decode_forward(tokens, tables, lens, page_idx, off)
-            lens = lens + live.to(torch.int32)
-            tokens, n_gen, done, produced = _sample_and_latch(
-                st, logits, tokens, n_gen, done, produced, live)
-            out[i] = tokens
-        return out, produced, done, dict(st, tokens=tokens, n_gen=n_gen), lens
-
-    def _fused_kernel_impl(self, st, tables, lens0, K):
-        """Kernel tier: K fused decode steps with no per-step pool write.
-
-        Each step appends its new KV to (L, B, K, KH, hd) tail buffers and
-        attends committed pages + tail under one softmax through
-        ``fused_decode_attention``. After the loop one scatter per pool
-        commits every valid tail row; rows past ``produced`` are routed to
-        trash page 0 (the explicit mask that stands in for the reference's
-        out-of-bounds ``mode="drop"``). Emits the same token stream as
-        :meth:`_fused_impl`. With a decode graph (one CUDA device) the
-        steps are its replays (:meth:`_fused_graph`); otherwise they are
-        issued op by op. Returns (tokens (K, B), produced, done, st,
-        lens)."""
-        if self._graph is not None:
-            return self._fused_graph(st, tables, lens0, K)
-        tp = self.stack
-        B = st["tokens"].shape[0]
-        L, dev = self.cfg.num_layers, self.device
-        # (L, B, K, KH_s, hd_s) tails beside each shard's pools
-        tails = [tuple(torch.zeros((L, B, K, *p[n].shape[3:]),
-                                   dtype=self.dtype, device=p[n].device)
-                       for n in ("k", "v")) for p in self.pool_shards]
-        tabs, lens0s = tp.replicate(tables), tp.replicate(lens0)
-        bidxs = tp.replicate(torch.arange(B, device=dev))
-        tokens, n_gen = st["tokens"], st["n_gen"]
-        done = torch.zeros((B,), dtype=torch.bool, device=dev)
-        produced = torch.zeros((B,), dtype=torch.int32, device=dev)
-        out = torch.zeros((K, B), dtype=torch.int32, device=dev)
-        RECORDER.count("decode_graph.eager", K)
-        for i in range(K):
-            tokens, n_gen, done, produced = self._kernel_step(
-                st, tokens, n_gen, done, produced, tabs, lens0, lens0s,
-                bidxs, tails)
-            out[i] = tokens
-        self._commit_tails(tails, tables, lens0, produced)
-        st = dict(st, tokens=tokens, n_gen=n_gen)
-        return out, produced, done, st, lens0 + produced
+        live = st["active"] & ~done
+        lens = lens0 + produced
+        page_slot = torch.clamp(lens // ps, max=tables.shape[1] - 1).long()
+        page_idx = tables.gather(1, page_slot[:, None])[:, 0]
+        page_idx = torch.where(live, page_idx, 0).long()
+        off = torch.where(live, lens % ps, 0).long()
+        logits = self._decode_forward(tokens, tables, lens, page_idx, off)
+        return _sample_and_latch(st, logits, tokens, n_gen, done, produced,
+                                 live)
 
     def _kernel_step(self, st, tokens, n_gen, done, produced, tabs, lens0,
                      lens0s, bidxs, tails):
-        """One step of the kernel tier's loop: the forward of every slot
-        against committed pages + tails, then sample and latch. ``tabs``,
-        ``lens0s``, ``bidxs`` and ``tails`` are per shard; the tails hold
-        Kt >= the call's K rows. Returns (tokens, n_gen, done,
-        produced)."""
+        """One step of the kernel tier's fused loop, with no pool write:
+        every slot's new KV goes to row ``produced`` of the (L, B, Kt, KH,
+        hd) tails, and the forward attends committed pages + tail under one
+        softmax (``fused_decode_attention``); then sample and latch.
+        ``fused_decode`` commits the tails after the loop
+        (:meth:`_commit_tails`), so the call emits the reference tier's
+        token stream. ``tabs``, ``lens0s``, ``bidxs`` and ``tails`` are per
+        shard; the tails hold Kt >= the call's K rows. Returns (tokens,
+        n_gen, done, produced)."""
         tp, dev = self.stack, self.device
         Kt = tails[0][0].shape[2]
         n_k = tabs[0].shape[1] * self.page_size
@@ -1108,20 +1043,6 @@ class PagedBackend:
             p["k"][:, pi, o] = t[0]
             p["v"][:, pi, o] = t[1]
 
-    def _fused_graph(self, st, tables, lens0, K):
-        """The kernel tier's K steps as replays of the decode graph: the
-        call's state is brought into its static buffers, each step is one
-        replay and one copy of its tokens into the output, and the tails'
-        K_cap rows are committed after the loop. Returns what
-        :meth:`_fused_kernel_impl` returns, the static buffers among
-        them."""
-        g = self._graph
-        g.bind(st, tables, lens0)
-        out = g.run(K)
-        self._commit_tails([g.tails], g.tables, g.lens, g.produced)
-        g.lens.add_(g.produced)
-        return out, g.produced, g.done, g.st, g.lens
-
     def fused_decode(self, K: int, host_state: dict | None = None):
         """Run up to K decode steps on the device; sync only token ids and
         flags, in one device->host copy.
@@ -1133,31 +1054,31 @@ class PagedBackend:
         (``kv.table_version``) or the engine re-seeds the slot state.
         Returns (tokens (K_eff, max_slots), produced, done) numpy arrays.
         """
+        g = self._graph
         with RECORDER.span("decode.prep"):
             K_eff = self._reserve_headroom(max(1, K))
             self._resolve_cow(K_eff)
-            if self._graphable:
-                if self._graph is None:
-                    self._graph = _DecodeGraph(self)
-                self._graph.reserve(max(1, K))
+            g.reserve(max(1, K))
             self._refresh_tables(force=host_state is not None)
             if host_state is not None:
-                self._dec_st = _upload_state(
-                    host_state, self.device,
-                    into=None if self._graph is None else self._graph.st)
+                self._dec_st = _upload_state(host_state, self.device,
+                                             into=g.st)
                 self._live = int(np.count_nonzero(host_state["active"]))
         if self._dec_st is None:
             raise RuntimeError("fused_decode needs host_state on the first "
                                "call")
         tables_d, lens_d = self._dev_tables
-        impl = self._fused_kernel_impl if self.use_kernel else self._fused_impl
         with RECORDER.span("decode.issue", K=K, K_run=K_eff, live=self._live,
                            max_slots=self.max_slots):
-            out, produced, done, self._dec_st, lens_d = impl(
-                self._dec_st, tables_d, lens_d, K_eff)
-        self._dev_tables = (tables_d, lens_d)
+            g.bind(self._dec_st, tables_d, lens_d)
+            out = g.run(K_eff)
+            if self.use_kernel:
+                self._commit_tails(g.tails, g.tables, g.lens, g.produced)
+            g.lens.add_(g.produced)
+        self._dec_st = g.st
+        self._dev_tables = (tables_d, g.lens)
         with RECORDER.span("decode.sync"):
-            host = _to_host(out, produced, done)
+            host = _to_host(out, g.produced, g.done)
         return self._advance_decoding(*host)
 
     @property
@@ -1198,17 +1119,15 @@ class PagedBackend:
                     self._cow(*cow)
 
     def _refresh_tables(self, force: bool) -> None:
-        """(Re)upload the device-resident (block tables, lengths) pair when
-        the allocator state moved from under the cached copy: into the
-        decode graph's static pair where there is one."""
+        """(Re)upload the device-resident (block tables, lengths) pair,
+        into the fused loop's static pair, when the allocator state moved
+        from under the cached copy."""
         if (force or self._dev_tables is None
                 or self._dev_tables_key != self.kv.table_version):
             tables, lens = self._host_tables()
             g = self._graph
-            self._dev_tables = (
-                (self._put("tables", tables), self._put("tables", lens))
-                if g is None else (_upload_into("tables", g.tables, tables),
-                                   _upload_into("tables", g.lens, lens)))
+            self._dev_tables = (_upload_into("tables", g.tables, tables),
+                                _upload_into("tables", g.lens, lens))
             self._dev_tables_key = self.kv.table_version
 
     # -- speculative decoding ----------------------------------------------------
@@ -1397,39 +1316,39 @@ class PagedBackend:
 
 
 class _StepGraph:
-    """One iteration of a backend's fused decode loop over static buffers,
-    captured as a CUDA graph and replayed once an iteration.
+    """The fused decode loop of both backends: K iterations of a backend's
+    iteration body over static buffers, each issued op by op or, where
+    ``capture`` is set, replayed from a CUDA graph.
 
     ``forward(st, tokens, n_gen, done, produced)`` is the iteration: from
     the per-slot decode state ``st`` (tokens, n_gen, active, temps, top_ps,
     seed_base, stop_tok, gen_limit) and ``done`` / ``produced`` it returns
     the next (tokens, n_gen, done, produced), which :meth:`step` copies
     back into the static buffers. Whatever else it reads or writes (the
-    slot cache; the paged tier's tables, lens and tails) its backend keeps
-    at fixed addresses. ``_upload_state`` can copy into ``st``; state a
-    call hands in from elsewhere is copied in on the device (:meth:`bind`).
+    slot cache; the paged backend's tables, lens and tails) its backend
+    keeps at fixed addresses. ``_upload_state`` can copy into ``st``; state
+    a call hands in from elsewhere is copied in on the device
+    (:meth:`bind`).
 
-    Capture first runs the iteration on the capture stream, which makes the
-    workspaces cuBLAS and the port's kernels keep per stream (and sets the
-    paged kernel's shared-memory attribute), then records it with the
-    recorder off. With ``rewind`` that warm-up is undone: the state it
-    moved is put back and its kernel launches are not counted, since the
-    first replay redoes it (the paged tier's step writes only its tails).
-    Without it the warm-up is the call's real iteration (a recurrent state
-    cannot be stepped twice) and counts ``decode_graph.eager``. A replay
-    adds the launches the recorded iteration made to ``_build.LAUNCHES``
-    and counts ``decode_graph.replay`` and ``counts`` (what the recorded
-    iteration would have counted). The graph holds the workspace that the
-    port's decode kernels cached for its stream, so that a later call
-    which grows it cannot free what the recorded launches point at. Off
-    CUDA nothing is captured and an iteration is a direct call, op by
-    op."""
+    ``capture`` (:func:`_captures_decode`, fixed at construction): the
+    first iteration with no graph is issued on a side stream, which makes
+    the workspaces cuBLAS and the port's kernels keep per stream (and sets
+    the paged kernel's shared-memory attribute); it is the call's real
+    iteration (a recurrent state cannot be stepped twice). The same
+    iteration is then recorded with the recorder off. A replay adds the
+    launches the recorded iteration made to ``_build.LAUNCHES`` and counts
+    ``decode_graph.replay`` and ``counts`` (what the recorded iteration
+    would have counted); an iteration issued op by op, the warm-up
+    included, counts ``decode_graph.eager``. The graph holds the workspace
+    that the port's decode kernels cached for its stream, so that a later
+    call which grows it cannot free what the recorded launches point
+    at."""
 
-    def __init__(self, device, B: int, forward, *, rewind: bool,
+    def __init__(self, device, B: int, forward, *, capture: bool,
                  counts: dict | None = None):
         self.device = device
         self.forward = forward
-        self.rewind = rewind
+        self.capture = capture
         self.counts = counts or {}
         self.produced = torch.zeros((B,), dtype=torch.int32, device=device)
         self.done = torch.zeros((B,), dtype=torch.bool, device=device)
@@ -1470,39 +1389,33 @@ class _StepGraph:
             dst.copy_(src)
 
     def iterate(self) -> None:
-        """One iteration: a replay on CUDA (captured first if need be),
-        else a direct call."""
-        if self.graph is None and self.device.type == "cuda" \
-                and self._capture():
+        """One iteration: a replay where a graph was recorded, else issued
+        op by op (and recorded after, with ``capture``)."""
+        if self.graph is not None:
+            self.graph.replay()
+            for name, n in self.launches.items():
+                _build.LAUNCHES[name] += n
+            RECORDER.count("decode_graph.replay")
+            for name, n in self.counts.items():
+                RECORDER.count(name, n)
             return
-        if self.graph is None:
+        if self.capture:
+            self._record()
+        else:
             self.step()
-            RECORDER.count("decode_graph.eager")
-            return
-        self.graph.replay()
-        for name, n in self.launches.items():
-            _build.LAUNCHES[name] += n
-        RECORDER.count("decode_graph.replay")
-        for name, n in self.counts.items():
-            RECORDER.count(name, n)
+        RECORDER.count("decode_graph.eager")
 
-    def _capture(self) -> bool:
-        """Warms up and records the graph. Returns whether the warm-up was
-        this iteration (without ``rewind``)."""
+    def _record(self) -> None:
+        """This iteration on the side stream, then the same iteration
+        recorded into the graph."""
         dev = self.device
         cur = torch.cuda.current_stream(dev)
         if self.stream is None:
             self.stream = torch.cuda.Stream(dev)
         s = self.stream
-        moved = (self.st["tokens"], self.st["n_gen"], self.done,
-                 self.produced)
-        before = dict(_build.LAUNCHES)
         s.wait_stream(cur)
         with torch.cuda.stream(s):
-            kept = [t.clone() for t in moved] if self.rewind else []
             self.step()
-            for t, k in zip(moved, kept):
-                t.copy_(k)
         cur.wait_stream(s)
         warm = dict(_build.LAUNCHES)
         graph = torch.cuda.CUDAGraph()
@@ -1516,60 +1429,68 @@ class _StepGraph:
         self.launches = {name: n - warm.get(name, 0)
                          for name, n in _build.LAUNCHES.items()
                          if n != warm.get(name, 0)}
-        _build.LAUNCHES.update(before if self.rewind else warm)
+        _build.LAUNCHES.update(warm)
         self.graph = graph
         self.workspace = cached_workspace(dev, s.cuda_stream)
         RECORDER.count("decode_graph.capture")
-        if not self.rewind:
-            RECORDER.count("decode_graph.eager")
-        return not self.rewind
 
 
 class _DecodeGraph(_StepGraph):
-    """The paged kernel tier's decode graph: one step of its fused loop
-    (:meth:`PagedBackend._kernel_step` at B = ``max_slots``, one device),
-    rewound after its warm-up. Beside the decode state it holds the device
-    (tables, lens) pair, which ``_refresh_tables`` copies into, and the
-    (L, B, K_cap, KH, hd) tails, K_cap the largest K asked so far: a larger
-    K regrows the tails and drops the graph, to be captured again. The
-    paged kernel reads its lengths on the device and runs at
+    """The paged backend's fused decode loop: its step is
+    :meth:`PagedBackend._kernel_step` or, on the reference tier,
+    :meth:`PagedBackend._reference_step`, at B = ``max_slots``. Beside the
+    decode state it holds the device (tables, lens) pair, which
+    ``_refresh_tables`` copies into, with its copy on every shard's device
+    (the pair itself on one device), and on the kernel tier the per-shard
+    (L, B, K_cap, KH_s, hd_s) tails, K_cap the largest K asked so far: a
+    larger K regrows the tails and drops the graph, to be captured again.
+    The paged kernel reads its lengths on the device and runs at
     ``kt_cap = K_cap``; tail rows past a slot's length are never read, and
     the split-K schedule depends on the length alone, so K_cap rows give
     what K rows give."""
 
-    def __init__(self, backend: PagedBackend):
-        B, dev = backend.max_slots, backend.device
-        super().__init__(dev, B, self._forward, rewind=True)
+    def __init__(self, backend: PagedBackend, *, capture: bool):
+        B, dev, tp = backend.max_slots, backend.device, backend.stack
+        super().__init__(dev, B, self._forward, capture=capture)
         self.backend = backend
         self.tables = torch.zeros((B, backend.pages_per_seq),
                                   dtype=torch.int32, device=dev)
         self.lens = torch.zeros((B,), dtype=torch.int32, device=dev)
-        self.bidx = torch.arange(B, device=dev)
+        self.tabs = tp.replicate(self.tables)
+        self.lens_s = tp.replicate(self.lens)
+        self.bidxs = tp.replicate(torch.arange(B, device=dev))
         self.tails = None
         self.k_cap = 0
 
-    def _forward(self, st, tokens, n_gen, done, produced):
-        return self.backend._kernel_step(
-            st, tokens, n_gen, done, produced, [self.tables], self.lens,
-            [self.lens], [self.bidx], [self.tails])
+    def _forward(self, *state):
+        bk = self.backend
+        if bk.use_kernel:
+            return bk._kernel_step(*state, self.tabs, self.lens, self.lens_s,
+                                   self.bidxs, self.tails)
+        return bk._reference_step(*state, self.tables, self.lens)
 
     def reserve(self, K: int) -> None:
-        """Tails of at least K rows: regrown, and the graph dropped, when K
-        exceeds K_cap."""
-        if K <= self.k_cap:
-            return
+        """Kernel tier: tails of at least K rows, regrown, and the graph
+        dropped, when K exceeds K_cap."""
         bk = self.backend
+        if not bk.use_kernel or K <= self.k_cap:
+            return
         self.graph = None
-        self.tails = tuple(
+        self.tails = [tuple(
             torch.zeros((bk.cfg.num_layers, bk.max_slots, K,
-                         *bk.pools[n].shape[3:]), dtype=bk.dtype,
-                        device=bk.device) for n in ("k", "v"))
+                         *p[n].shape[3:]), dtype=bk.dtype,
+                        device=p[n].device) for n in ("k", "v"))
+            for p in bk.pool_shards]
         self.k_cap = K
 
     def bind(self, st: dict, tables, lens) -> None:
         """A call's state into the static buffers: device copies of what
-        is held elsewhere."""
+        is held elsewhere, then the pair to the other shards' devices."""
         super().bind(st)
-        for dst, src in ((self.tables, tables), (self.lens, lens)):
+        for dst, src, copies in ((self.tables, tables, self.tabs),
+                                 (self.lens, lens, self.lens_s)):
             if src is not dst:
                 dst.copy_(src)
+            for c in copies:
+                if c is not dst:
+                    c.copy_(dst)

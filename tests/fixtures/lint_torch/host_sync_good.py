@@ -6,8 +6,8 @@ def _advance(tokens, n):
     return (tokens + n).int()               # a device cast, not a sync
 
 
-class Backend:
-    def _fused_kernel_impl(self, st, K):
+class _StepGraph:
+    def run(self, st, K):
         tokens = st["tokens"]
         out = torch.zeros((K,) + tuple(tokens.shape), dtype=torch.int32)
         for i in range(K):
@@ -15,6 +15,9 @@ class Backend:
             out[i] = tokens.float().to(out.dtype)
         return out
 
+
+class Backend:
     def fused_decode(self, st, K):
-        out = self._fused_kernel_impl(st, K)
+        out = _StepGraph().run(st, K)
         return out.cpu().numpy()            # the one sync, outside the loop
+

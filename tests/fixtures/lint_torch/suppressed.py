@@ -2,7 +2,7 @@
 
 
 class Backend:
-    def _fused_impl(self, x):
+    def _iteration(self, x):
         a = x.item()  # firstlint: disable=host-sync-in-hot-path -- fixture
         # firstlint: disable-next-line=host-sync-in-hot-path -- fixture
         b = x.cpu()

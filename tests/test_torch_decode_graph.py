@@ -1,20 +1,20 @@
-"""The paged kernel tier's fused decode step over static buffers
-(``serving/backends.py``: ``_DecodeGraph``), replayed as a CUDA graph on one
-card and called directly on the CPU.
+"""The paged backend's fused decode loop (``serving/backends.py``:
+``_DecodeGraph``, the one fused loop ``_StepGraph`` over the paged
+backend's static buffers), replayed as a CUDA graph on one card and issued
+op by op elsewhere.
 
-On the CPU the graph path runs the same static-buffer step with a direct
-call in place of the replay: forced on for one engine, it must give the
-token streams, ``produced`` and ``done`` of the eager kernel tier, call by
-call, through a changed batch (the state uploaded into the static
-buffers), table refreshes, a K clamped by a tight pool, a copy-on-write
-page, and sequences finishing in the middle of a call, with the tails
-sized for K = 8 whatever K a call runs. ``decode_graph.eager`` counts each
-of its steps. The reference tier, the slot backend and a mesh never make a
-graph.
+On the CPU both tiers run through the same loop: the kernel tier, its tails
+sized for K = 8 whatever K a call runs, must give the token streams,
+``produced`` and ``done`` of the reference tier, call by call, through a
+changed batch (the state uploaded into the static buffers), table
+refreshes, a K clamped by a tight pool, a copy-on-write page, and
+sequences finishing in the middle of a call. ``decode_graph.eager`` counts
+each of their steps. The reference tier, the slot backend and a mesh never
+make a graph.
 
 The tests marked ``card`` need an NVIDIA card and skip without one (run
 them there with ``python -m pytest --noconftest -q
-tests/test_torch_decode_graph.py``): replay against eager issue on the
+tests/test_torch_decode_graph.py``): replay against op-by-op issue on the
 card, and the tail kernel at ``kt_cap = K_cap`` against ``kt_cap = K``.
 This file imports no JAX.
 """
@@ -29,7 +29,6 @@ from repro_torch.kernels import _build
 from repro_torch.launch.mesh import make_local_mesh
 from repro_torch.models import make_model
 from repro_torch.serving import backends
-from repro_torch.serving.backends import _DecodeGraph
 from repro_torch.serving.engine import ContinuousBatchingEngine, EngineConfig
 from repro_torch.serving.request import InferenceRequest, SamplingParams
 from repro_torch.serving.tracing import RECORDER
@@ -76,13 +75,10 @@ def _engine(model, params, device="cpu", **over):
                                     device=device)
 
 
-def _with_graph(eng):
-    """The engine's paged backend on the graph path, its tails sized for
-    K = 8 before the first call."""
-    be = eng.backend
-    be._graphable = True
-    be._graph = _DecodeGraph(be)
-    be._graph.reserve(K_CAP)
+def _with_tails(eng):
+    """The engine's paged backend with its tails sized for K = 8 before
+    the first call."""
+    eng.backend._graph.reserve(K_CAP)
     return eng
 
 
@@ -141,20 +137,20 @@ def _serve(eng, scenario: str, top_p: bool):
 @pytest.mark.parametrize("k_run", [1, 3, 8])
 @pytest.mark.parametrize("mode", ["greedy", "topp"])
 @pytest.mark.parametrize("scenario", list(SCENARIOS))
-def test_static_step_matches_the_eager_kernel_tier(lm, scenario, mode,
-                                                   k_run):
+def test_kernel_tier_matches_the_reference_tier_call_by_call(lm, scenario,
+                                                             mode, k_run):
     model, params = lm
     top_p = mode == "topp"
     kw = dict(decode_steps_per_sync=k_run, num_pages=SCENARIOS[scenario][0])
-    eager = _engine(model, params, **kw)
-    want_calls = _record_calls(eager)
-    want = _serve(eager, scenario, top_p)
+    ref = _engine(model, params, use_kernel=False, **kw)
+    want_calls = _record_calls(ref)
+    want = _serve(ref, scenario, top_p)
     want_counters = dict(RECORDER.counters)
     RECORDER.clear()
 
-    graph = _with_graph(_engine(model, params, **kw))
-    got_calls = _record_calls(graph)
-    got = _serve(graph, scenario, top_p)
+    kernel = _with_tails(_engine(model, params, **kw))
+    got_calls = _record_calls(kernel)
+    got = _serve(kernel, scenario, top_p)
     c = dict(RECORDER.counters)
 
     assert got == want
@@ -164,10 +160,10 @@ def test_static_step_matches_the_eager_kernel_tier(lm, scenario, mode,
         assert k == wk
         for x, y in zip(a, b):
             np.testing.assert_array_equal(x, y)
-    assert graph.stats == eager.stats
-    assert graph.cache_stats() == eager.cache_stats()
+    assert kernel.stats == ref.stats
+    assert kernel.cache_stats() == ref.cache_stats()
     # the run's state lives in the static buffers
-    be = graph.backend
+    be = kernel.backend
     assert be._graph.k_cap == K_CAP and be._graph.graph is None
     assert be._dec_st is be._graph.st
     assert be._dev_tables[0] is be._graph.tables
@@ -184,7 +180,7 @@ def test_static_step_matches_the_eager_kernel_tier(lm, scenario, mode,
     elif k_run > 1:
         assert any(n < k for (k, *_), n in zip(got_calls, runs)
                    if k == k_run), "no call was clamped by the pool"
-    # every step a direct call, counted; nothing captured or replayed
+    # every step issued op by op, counted; nothing captured or replayed
     assert c["decode_graph.eager"] == sum(runs) \
         == want_counters["decode_graph.eager"]
     assert "decode_graph.replay" not in c and "decode_graph.capture" not in c
@@ -199,37 +195,36 @@ def test_a_larger_k_regrows_the_tails(lm):
     model, params = lm
     eng = _engine(model, params, decode_steps_per_sync=3)
     be = eng.backend
-    be._graphable = True
     _serve(eng, "mixed", top_p=False)
     assert be._graph.k_cap == 3
     tails = be._graph.tails
     be._graph.reserve(2)
     assert be._graph.tails is tails
     be._graph.reserve(5)
-    assert be._graph.k_cap == 5 and be._graph.tails[0].shape[2] == 5
+    assert be._graph.k_cap == 5 and be._graph.tails[0][0].shape[2] == 5
 
 
 def test_speculation_over_the_static_buffers_matches_eager(lm):
-    """Draft and target backends on the graph path: the draft's proposal
-    loop runs over the static buffers between its length resets and
-    catch-ups, and the target's fused calls pick up the state the verify
-    left elsewhere; a request run to ``max_seq_len`` makes the target fall
-    back to a fused call."""
+    """Draft and target backends of both tiers through the one loop: the
+    draft's proposal loop runs over the static buffers between its length
+    resets and catch-ups, and the target's fused calls pick up the state
+    the verify left elsewhere; a request run to ``max_seq_len`` makes the
+    target fall back to a fused call. The kernel tier serves what the
+    reference tier serves."""
     model, params = lm
     scenario = {**SCENARIOS["mixed"][1],
                 6: [([40 + j for j in range(100)], 40)]}
     kw = dict(spec_tokens=3, decode_steps_per_sync=1, num_pages=40)
     outs, calls = [], []
-    for graph in (False, True):
+    for use_kernel in (False, True):
         eng = ContinuousBatchingEngine(
             model, params, EngineConfig(**dict(
                 backend="paged", page_size=16, max_slots=4,
                 max_seq_len=MAX_LEN, enable_prefix_cache=True,
-                chunked_prefill_budget=32, use_kernel=True, **kw)),
+                chunked_prefill_budget=32, use_kernel=use_kernel, **kw)),
             draft_model=model, draft_params=params, device="cpu")
-        if graph:
-            _with_graph(eng)
-            eng.draft_backend._graphable = True
+        if use_kernel:
+            _with_tails(eng)
         calls.append(_record_calls(eng))
         arrivals, got, step, n = scenario, {}, 0, 0
         while step <= max(arrivals) or eng.has_work():
@@ -265,19 +260,22 @@ def test_other_paths_never_make_a_graph(lm, case):
     assert c["decode_graph.eager"] == sum(out.shape[0]
                                           for _, out, _, _ in calls) > 0
     assert "decode_graph.replay" not in c and "decode_graph.capture" not in c
-    be = eng.backend
-    assert getattr(be, "_graph", None) is None
-    assert not getattr(be, "_graphable", False)
+    g = eng.backend._graph
+    assert g.graph is None and not g.capture
 
 
 def test_the_graph_engages_on_one_cuda_device_on_the_kernel_tier():
     """What the choice rests on: the kernel tier on one CUDA device
     replays; the reference tier, a mesh and the CPU do not."""
     cuda, cpu, shard = torch.device("cuda", 0), torch.device("cpu"), object()
-    assert backends._replays_decode(True, None, cuda)
-    assert not backends._replays_decode(False, None, cuda)
-    assert not backends._replays_decode(True, shard, cuda)
-    assert not backends._replays_decode(True, None, cpu)
+    cfg = REGISTRY[ARCH]
+
+    def captures(*a):
+        return backends._captures_decode(cfg, *a, paged=True)
+    assert captures(True, None, cuda)
+    assert not captures(False, None, cuda)
+    assert not captures(True, shard, cuda)
+    assert not captures(True, None, cpu)
 
 
 # ---------------------------------------------------------------------------
@@ -309,9 +307,9 @@ def test_card_replay_matches_eager_issue(card, mode):
     for name in ("eager", "graph"):
         eng = _engine(model, params, device=card, num_pages=64)
         be = eng.backend
-        assert be._graphable
+        assert be._graph.capture
         if name == "eager":
-            be._graphable = False
+            be._graph.capture = False
         calls = _record_calls(eng)
         RECORDER.clear()
         _build.reset_launches()
@@ -327,9 +325,10 @@ def test_card_replay_matches_eager_issue(card, mode):
         for x, y in zip(a, b):
             np.testing.assert_array_equal(x, y)
     steps = sum(out.shape[0] for _, out, _, _ in got_calls)
-    assert c["decode_graph.replay"] == steps == want_c["decode_graph.eager"]
-    assert "decode_graph.eager" not in c
-    assert c.get("decode_graph.capture", 0) <= 2
+    # a capture's warm-up is the call's real iteration, issued op by op
+    assert c["decode_graph.replay"] + c["decode_graph.eager"] == steps \
+        == want_c["decode_graph.eager"]
+    assert c["decode_graph.eager"] == c["decode_graph.capture"] <= 2
     assert got_l["fused_decode_attention"] == want_l["fused_decode_attention"] \
         == model.cfg.num_layers * steps
     issues = {i for i, s in enumerate(spans) if s.name == "decode.issue"}

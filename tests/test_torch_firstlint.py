@@ -6,8 +6,9 @@ Each rule has a bad fixture (an exact count of findings) and a good one
 (none) under ``tests/fixtures/lint_torch/``. The mutation regressions
 edit the port's REAL sources in memory -- delete a ``table_version`` bump,
 the device-table key, a wrapper's ``_build.check``; insert an ``.item()``
-into the sampler's latch or into the sharded decode loop in the model
-modules -- and assert the rules notice.
+into the sampler's latch, the fused decode loop, each iteration body it
+runs, or the sharded decode loop in the model modules -- and assert the
+rules notice.
 """
 import ast
 import json
@@ -187,8 +188,9 @@ def test_directory_walk_skips_fixtures_but_explicit_path_checks_them():
 def test_hot_set_reaches_the_latch_and_the_tail_attention():
     tree = ast.parse((PORT / "serving" / "backends.py").read_text())
     hot = hot_set(tree, HostSyncRule.roots)
-    assert {"_fused_impl", "_fused_kernel_impl", "_verify_forward",
-            "_decode_step", "_decode_forward", "_sample_and_latch",
+    assert {"run", "iterate", "step", "_iteration", "_kernel_step",
+            "_reference_step", "_verify_forward", "_decode_step",
+            "_decode_forward", "_sample_and_latch",
             "_tail_attend"} <= set(hot)
     # the host wrappers stay outside: they are where token ids cross
     assert not {"fused_decode", "spec_verify", "decode_batch",
@@ -273,6 +275,28 @@ def test_inserting_item_into_the_sampler_latch_is_caught():
     kept, _ = analyze_source(mutated, str(path),
                              get_rules(["host-sync-in-hot-path"]))
     assert len(kept) == 1 and "_sample_and_latch" in kept[0].message
+
+
+LOOP_SITES = [
+    ("            out[i] = self.st[\"tokens\"]\n", "run"),
+    ("        logits = self._decode_step(tokens)\n", "_iteration"),
+    ("        h = tp.embed(tokens[:, None])\n", "_kernel_step"),
+    ("        lens = lens0 + produced\n", "_reference_step"),
+]
+
+
+@pytest.mark.parametrize("needle,fn", LOOP_SITES,
+                         ids=[s[1] for s in LOOP_SITES])
+def test_inserting_item_into_the_decode_loop_is_caught(needle, fn):
+    """The fused decode loop and each iteration body it runs."""
+    path = PORT / "serving" / "backends.py"
+    src = path.read_text()
+    assert src.count(needle) == 1
+    indent = needle[:len(needle) - len(needle.lstrip())]
+    mutated = src.replace(needle, indent + "produced.item()\n" + needle)
+    kept, _ = analyze_source(mutated, str(path),
+                             get_rules(["host-sync-in-hot-path"]))
+    assert len(kept) == 1 and f"'{fn}'" in kept[0].message
 
 
 SHARDED_SITES = [

@@ -183,16 +183,15 @@ def tiny_params():
 
 
 def test_slot_graph_buffers_match_the_eager_loop(tiny_params):
-    """The decode graph's static-buffer iteration, called directly (off
-    CUDA nothing is captured), serves what the eager loop serves; the
-    eager loop is what a CPU backend takes by itself."""
-    eager = _engine(tiny_params)
-    assert not eager.backend._graphable
-    want = _serve(eager)
+    """The fused loop's static-buffer iteration, issued op by op (off CUDA
+    nothing is captured), serves what the engine's per-step path, sampled
+    on the host, serves; the call's state stays in the static buffers."""
+    want = _serve(_engine(tiny_params, fused_decode=False))
     static = _engine(tiny_params)
-    static.backend._graphable = True
+    g = static.backend._graph
+    assert not g.capture
     assert _serve(static) == want
-    assert static.backend._graph is not None
+    assert static.backend._dec_st is g.st and g.graph is None
 
 
 def test_the_slot_graph_engages_on_the_published_layout_only():
@@ -200,14 +199,17 @@ def test_the_slot_graph_engages_on_the_published_layout_only():
     only at the published hybrid layout: the ssm family, the
     ``attn_every`` hybrid and the attention families issue op by op."""
     from repro_torch.configs import REGISTRY
-    from repro_torch.serving.backends import _slot_replays_decode
+    from repro_torch.serving.backends import _captures_decode
+
+    def captures(cfg, *a):
+        return _captures_decode(cfg, *a, paged=False)
     cuda, cpu, shard = torch.device("cuda", 0), torch.device("cpu"), object()
-    assert _slot_replays_decode(TINY, True, None, cuda)
-    assert not _slot_replays_decode(TINY, False, None, cuda)
-    assert not _slot_replays_decode(TINY, True, shard, cuda)
-    assert not _slot_replays_decode(TINY, True, None, cpu)
+    assert captures(TINY, True, None, cuda)
+    assert not captures(TINY, False, None, cuda)
+    assert not captures(TINY, True, shard, cuda)
+    assert not captures(TINY, True, None, cpu)
     for arch in ("zamba2-2.7b", "mamba2-130m", "llama3.2-3b"):
-        assert not _slot_replays_decode(REGISTRY[arch], True, None, cuda)
+        assert not captures(REGISTRY[arch], True, None, cuda)
 
 
 def test_records_of_the_hybrid_slot_path(tiny_params):
@@ -261,15 +263,14 @@ def test_slot_decode_attention_is_counted_per_application(tiny_params,
                                                           use_kernel,
                                                           graphable):
     """``slot_decode_attn.kernel`` (kernel tier) or ``.plain`` once for
-    each application of a tied block in each decode iteration, eager or
-    through the decode graph's static buffers; the graph hands the same
-    count to its replays."""
+    each application of a tied block in each decode iteration issued op by
+    op; with ``graphable`` the counts the loop hands to a replay are what
+    each of those iterations counted."""
     eng = ContinuousBatchingEngine(
         make_model(TINY), tiny_params,
         EngineConfig(backend="slots", use_kernel=use_kernel, max_slots=4,
                      max_seq_len=128, decode_steps_per_sync=4),
         device="cpu")
-    eng.backend._graphable = graphable
     RECORDER.enable()
     RECORDER.refresh()
     try:
@@ -285,8 +286,11 @@ def test_slot_decode_attention_is_counted_per_application(tiny_params,
     assert c[f"slot_decode_attn.{tier}"] == apps * iters
     assert f"slot_decode_attn.{other}" not in c
     if graphable:
-        assert eng.backend._graph.counts == {
-            "shared_block.apps": apps, f"slot_decode_attn.{tier}": apps}
+        counts = eng.backend._graph.counts
+        assert counts == {"shared_block.apps": apps,
+                          f"slot_decode_attn.{tier}": apps}
+        assert c[f"slot_decode_attn.{tier}"] \
+            == counts[f"slot_decode_attn.{tier}"] * iters
 
 
 @pytest.fixture
@@ -312,8 +316,8 @@ def test_card_slot_graph_replay_matches_eager(card):
             EngineConfig(backend="slots", use_kernel=True, max_slots=4,
                          max_seq_len=128, decode_steps_per_sync=4),
             device=card)
-        assert eng.backend._graphable
-        eng.backend._graphable = graphable
+        assert eng.backend._graph.capture
+        eng.backend._graph.capture = graphable
         runs.append((_serve(eng), eng.backend))
     (got, be), (want, _) = runs
     assert got == want
