@@ -18,7 +18,10 @@ package. Phases, each of which raises on a failed check (exit code 1):
    lengths drawn like ``zamba2-chat-burst``'s, timed beside SDPA on the
    pre-gathered cache and its bound, the live K/V bytes once; and at
    heads of 80 and 128, G of 1 to 48, windows, empty, full and overgrown
-   slots), at phase 6's shapes
+   slots; the mixer decode kernel: 32 slots, 112 heads of 64, N = 64 in 2
+   groups, timed beside the plain step with its cache write-back and its
+   bound, the float32 state read and written once; and at zamba2-2.7b's
+   and mamba2-130m's mixers), at phase 6's shapes
    (phi3.5-moe's and llava-next-34b's grouping in both paged kernels;
    hubert-xlarge's non-causal (8, 512, 16, 80) batch in the flash kernel,
    timed beside SDPA and its bound), at phase 8's per-shard shapes (the
@@ -1196,6 +1199,113 @@ def run_slot_kernel_checks(torch, dev):
     return results
 
 
+def mixer_case(torch, dev, cfg, b, seed):
+    """One mixer's bf16 weights (conv bias and D drawn away from 0 and 1),
+    a zxbcdt row and a slot cache of one layer."""
+    from repro_torch.models.mamba2 import init_mamba
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    p = {k: v[0] for k, v in init_mamba(gen, cfg, torch.bfloat16, 1).items()}
+    p["conv_b"] = (0.1 * torch.randn(p["conv_b"].shape, generator=gen,
+                                     device=dev)).bfloat16()
+    p["D"] = torch.rand(p["D"].shape, generator=gen, device=dev)
+    di, gn, h = cfg.d_inner, cfg.ssm.n_groups * cfg.ssm.d_state, cfg.ssm_heads
+    zx = torch.randn(b, 1, 2 * di + 2 * gn + h, generator=gen,
+                     device=dev).bfloat16()
+    cache = {"conv": torch.randn(1, b, cfg.ssm.conv_kernel - 1, di + 2 * gn,
+                                 generator=gen, device=dev).bfloat16(),
+             "ssm": 0.5 * torch.randn(1, b, h, cfg.ssm.head_dim,
+                                      cfg.ssm.d_state, generator=gen,
+                                      device=dev)}
+    return p, zx, cache
+
+
+def mixer_bytes(b, cfg):
+    """The least bytes of one mixer decode step: the float32 state read and
+    written, the row, the window read and written, the weights (the norm's
+    too), the output."""
+    h, n, k = cfg.ssm_heads, cfg.ssm.d_state, cfg.ssm.conv_kernel
+    di, gn = cfg.d_inner, cfg.ssm.n_groups * n
+    return (2 * b * h * cfg.ssm.head_dim * n * 4
+            + b * (2 * di + 2 * gn + h) * 2 + 2 * b * (k - 1) * (di + 2 * gn)
+            * 2 + (k + 1) * (di + 2 * gn) * 2 + 3 * h * 4 + di * 2
+            + b * di * 2)
+
+
+def run_mixer_kernel_checks(torch, dev):
+    """The mixer decode kernel against its plain version -- the gated,
+    normed output, the new float32 state and the shifted window, two steps
+    in turn -- at
+    Zamba2-7B's decode step (32 slots, 112 heads of 64, N = 64 in 2
+    groups), zamba2-2.7b's (80 heads, 1 group) and mamba2-130m's (24
+    heads, N = 128), then its time at Zamba2-7B's step beside the plain
+    step with the slot cache's write-back (what the engine ran before the
+    kernel) and its bound, :func:`mixer_bytes` at 3.35 TB/s."""
+    import dataclasses
+
+    from repro_torch.configs import REGISTRY
+    from repro_torch.kernels.mixer_decode.ops import mixer_decode
+    from repro_torch.models.mamba2 import mixer_decode_step
+    K = Kernels(torch, dev)
+    z7 = dataclasses.replace(
+        REGISTRY["zamba2-2.7b"], d_model=3584,
+        ssm=dataclasses.replace(REGISTRY["zamba2-2.7b"].ssm, n_groups=2))
+    cases = [("zamba2-7b B=32 H=112 N=64 G=2", z7, 32),
+             ("zamba2-2.7b B=8 H=80 N=64 G=1", REGISTRY["zamba2-2.7b"], 8),
+             ("mamba2-130m B=9 H=24 N=128 G=1", REGISTRY["mamba2-130m"], 9)]
+    worst = 0.0
+    for label, cfg, b in cases:
+        p, zx, cache = mixer_case(torch, dev, cfg, b, 3)
+        want_st = {k: v[0].clone() for k, v in cache.items()}
+        st = {k: v[0] for k, v in cache.items()}
+        errs = []
+        for row in (zx, zx.flip(0)):
+            want, want_st = mixer_decode_step(row, want_st, p, cfg)
+            got, st = mixer_decode(row, st, p, cfg)
+            got_st = st
+            torch.cuda.synchronize()
+            check(bool(torch.isfinite(got.float()).all()),
+                  f"mixer_decode {label}: non-finite output")
+            check(torch.equal(got_st["conv"], want_st["conv"]),
+                  f"mixer_decode {label}: the window was not shifted as "
+                  "the plain version shifts it")
+            y_rel, y_abs = rel_err(got, want)
+            s_rel, _ = rel_err(got_st["ssm"], want_st["ssm"])
+            same = float((got_st["ssm"] == want_st["ssm"]).float().mean())
+            errs.append((y_rel, s_rel, same))
+            worst = max(worst, y_abs)
+            check(y_rel <= TOL["bfloat16"] and s_rel <= 1e-2
+                  and same >= 0.99,
+                  f"mixer_decode {label}: kernel disagrees with its plain "
+                  f"version (output {y_rel:.3e}, state {s_rel:.3e}, "
+                  f"{same:.5f} of the state equal)")
+        print(f"  {'mixer_decode':24s} {label:48s} " + "; ".join(
+            f"step {i}: y rel_err={e[0]:.3e} state rel_err={e[1]:.3e} "
+            f"equal {e[2]:.5f}" for i, e in enumerate(errs)) + " ok")
+    B = 32
+    p, zx, cache = mixer_case(torch, dev, z7, B, 4)
+    st = {k: v[0] for k, v in cache.items()}
+
+    def plain():
+        y, new = mixer_decode_step(zx, st, p, z7)
+        cache["conv"][0] = new["conv"]
+        cache["ssm"][0] = new["ssm"]
+        return y
+    nbytes = mixer_bytes(B, z7)
+    r = dict(max_abs_err=worst, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+             bound_by="bytes", bytes=nbytes,
+             flops=6 * B * z7.ssm_heads * 64 * z7.ssm.d_state,
+             **K.timings(lambda: mixer_decode(zx, st, p, z7), plain))
+    r["plain_device_ms"] = K.time_ms(plain, device=True)
+    r["share"] = r["bound_ms"] / r["device_ms"]
+    print(f"  mixer_decode at Zamba2-7B's step: {nbytes / 1e6:.1f} MB, "
+          f"share of its bound by device time {r['share']:.3f}; the plain "
+          f"step's device time {r['plain_device_ms']:.4f} ms")
+    results = {"mixer_decode": r}
+    torch.cuda.synchronize()
+    print_times(results)
+    return results
+
+
 # ---------------------------------------------------------------------------
 # phase 3: the engine at full width
 # ---------------------------------------------------------------------------
@@ -1755,6 +1865,10 @@ def run_hybrid_engine(torch, dev):
           f"slot_decode_attention launched "
           f"{fused_launches['slot_decode_attention']} times, expected "
           f"{n_shared} for each of {steps['n']} decode steps")
+    check(fused_launches["mixer_decode"] == cfg.num_layers * steps["n"],
+          f"mixer_decode launched {fused_launches['mixer_decode']} times, "
+          f"expected {cfg.num_layers} for each of {steps['n']} decode "
+          f"steps")
     ttft = sorted(o.metrics.ttft for o in outs)
     metrics = {
         "prefill_tokens": eng.stats["prefill_tokens"],
@@ -1830,7 +1944,8 @@ def run_hybrid_engine(torch, dev):
     launches = {"ssd": fused_launches["ssd"],
                 "flash_attention": fused_launches["flash_attention"],
                 "slot_decode_attention":
-                    fused_launches["slot_decode_attention"]}
+                    fused_launches["slot_decode_attention"],
+                "mixer_decode": fused_launches["mixer_decode"]}
     return launches, metrics
 
 
@@ -3735,7 +3850,8 @@ def run_tp_hybrid(torch, dev, one_device):
           f"{lap('main')}")
     tp_launch_check("8d", launches, {
         "ssd": n * L * TP_SHARDS, "flash_attention": n * G * TP_SHARDS,
-        "slot_decode_attention": steps["n"] * G * TP_SHARDS})
+        "slot_decode_attention": steps["n"] * G * TP_SHARDS,
+        "mixer_decode": steps["n"] * L * TP_SHARDS})
     check(all(passes[k] == launches["ssd"] for k in (
         "ssd_chunk_state", "ssd_state_pass", "ssd_chunk_scan"))
         and passes["ssd_fma"] == 0,
@@ -3803,6 +3919,7 @@ def run_tp_hybrid(torch, dev, one_device):
     sparams = smodel.init_params(torch.Generator(device=dev).manual_seed(0))
     eng = ContinuousBatchingEngine(smodel, sparams, EngineConfig(**ecfg),
                                    device=dev)
+    ssteps = count_decode_steps(eng.backend)
     backends.reset_transfer_stats()
     _build.reset_launches()
     outs, _, _, _ = drive(torch, eng, requests(TP_SSM_LENS, TP_HYBRID_TOKENS,
@@ -3814,7 +3931,8 @@ def run_tp_hybrid(torch, dev, one_device):
     print(f"  launches {slaunches}: {len(TP_SSM_LENS)} prompts x {SL} layers "
           f"x {TP_SHARDS} shards {lap('mamba2_main')}")
     tp_launch_check("8d mamba2", slaunches,
-                    {"ssd": len(TP_SSM_LENS) * SL * TP_SHARDS})
+                    {"ssd": len(TP_SSM_LENS) * SL * TP_SHARDS,
+                     "mixer_decode": ssteps["n"] * SL * TP_SHARDS})
     del eng
     floor = make_model(dataclasses.replace(
         scfg, ssm=dataclasses.replace(scfg.ssm, chunk=128)))
@@ -4694,6 +4812,7 @@ def main() -> int:
     timing = run_kernel_checks(torch, dev)
     timing.update(run_hybrid_kernel_checks(torch, dev))
     timing.update(run_slot_kernel_checks(torch, dev))
+    timing.update(run_mixer_kernel_checks(torch, dev))
     launches, metrics = run_engine(torch, dev)
     torch.cuda.empty_cache()
     hybrid_launches, hybrid_metrics = run_hybrid_engine(torch, dev)
@@ -4743,10 +4862,13 @@ def main() -> int:
             "src/repro_torch/csrc/slot_attention.cu",
             "none: src/repro/models/layers.py decode_attention_appended is "
             "jnp"),
+        "mixer_decode": (
+            "src/repro_torch/csrc/mixer_decode.cu",
+            "none: src/repro/models/mamba2.py _mixer's decode step is jnp"),
     }
     # launches: paged_attention from phase 3's per-step path, the other two
-    # paged kernels from its fused main path, ssd, flash_attention and
-    # slot_decode_attention from phase 4's main path
+    # paged kernels from its fused main path, ssd, flash_attention,
+    # slot_decode_attention and mixer_decode from phase 4's main path
     # per-shard launches under a mesh: phase 8a's fused path and per-step
     # path, phase 8e's two dbrx-132b engines' fused paths, phase 8d's
     # zamba2 main path (ssd, flash_attention); the paged prefill kernel
@@ -4760,7 +4882,8 @@ def main() -> int:
         "ssd": tp_metrics["hybrid"]["launches"]["ssd"],
         "flash_attention": tp_metrics["hybrid"]["launches"]["flash_attention"],
         "slot_decode_attention":
-            tp_metrics["hybrid"]["launches"]["slot_decode_attention"]}
+            tp_metrics["hybrid"]["launches"]["slot_decode_attention"],
+        "mixer_decode": tp_metrics["hybrid"]["launches"]["mixer_decode"]}
     kernels = []
     for name, (source, repl) in replaces.items():
         r = timing[name]

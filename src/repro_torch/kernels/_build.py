@@ -33,7 +33,7 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 SOURCES = ("paged_attention", "paged_prefill", "ssd", "flash_attention",
-           "slot_attention")
+           "slot_attention", "mixer_decode")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 NVCC_TIMEOUT_S = 600
@@ -41,7 +41,7 @@ NVCC_TIMEOUT_S = 600
 # launches per kernel wrapper; incremented only where a kernel is launched
 LAUNCHES = {"paged_attention": 0, "fused_decode_attention": 0,
             "paged_flash_prefill": 0, "ssd": 0, "flash_attention": 0,
-            "slot_decode_attention": 0}
+            "slot_decode_attention": 0, "mixer_decode": 0}
 # device kernels per pass of a wrapper that launches several: the SSD
 # scan's bf16 route launches its three passes once a call, float32 its one
 # FMA kernel

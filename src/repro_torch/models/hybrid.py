@@ -329,7 +329,10 @@ def serve_decode_step(stack, tokens, caches, lens, *, window=0,
     loop, as :func:`decode_step`). The caller advances the lengths.
     ``use_kernel``: the shared block's attention through the slot decode
     kernel where each shard holds whole heads (``ServeStack.
-    decode_attend``). Returns float32 logits (B, V) on the lead device."""
+    decode_attend``), and the mixers' decode steps through the mixer
+    decode kernel where it takes the config (``ServeStack.mixer``), which
+    updates the state in place. Returns float32 logits (B, V) on the lead
+    device."""
     cfg = stack.cfg
     lens_s = stack.replicate(lens)
     new = [([], []) for _ in range(stack.n)]
@@ -337,13 +340,13 @@ def serve_decode_step(stack, tokens, caches, lens, *, window=0,
     def decode_mix(h, i, tied=None):
         lp = stack.layers[0][i]
         x = h if tied is None else h + tied
-        y, states = stack.mixer(
-            rms_norm(x, lp["norm"], cfg.norm_eps), i,
-            states=[{"conv": c["conv"][i], "ssm": c["ssm"][i]}
-                    for c in caches])
-        for c, st in zip(caches, states):
-            c["conv"][i] = st["conv"]
-            c["ssm"][i] = st["ssm"]
+        old = [{"conv": c["conv"][i], "ssm": c["ssm"][i]} for c in caches]
+        y, states = stack.mixer(rms_norm(x, lp["norm"], cfg.norm_eps), i,
+                                states=old, use_kernel=use_kernel)
+        for c, was, st in zip(caches, old, states):
+            for key, new_state in st.items():
+                if new_state is not was[key]:  # else updated in place
+                    c[key][i] = new_state
         return h + y
 
     def cache_attend(g):

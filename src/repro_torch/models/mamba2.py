@@ -4,7 +4,10 @@
 ``ssd_chunked`` here is the plain PyTorch scan and the SSD kernel's plain
 version (``kernels/ssd/ref.py`` re-exports it); ``csrc/ssd.cu`` computes the
 same math on the card. ``mamba_layer(..., use_kernel=True)`` sends its
-prefill scan through the kernel's wrapper ``kernels.ssd.ops.ssd``.
+prefill scan through the kernel's wrapper ``kernels.ssd.ops.ssd``, and its
+decode step between the projections through
+``kernels.mixer_decode.ops.mixer_decode`` (``csrc/mixer_decode.cu``), whose
+plain version is :func:`mixer_decode_step`.
 """
 from __future__ import annotations
 
@@ -187,19 +190,64 @@ def mamba_layer(x, p, cfg, *, state=None, use_kernel=False):
     return y @ p["out_proj"], new_state
 
 
-def _mixer(zxbcdt, p, cfg, *, state=None, use_kernel=False):
-    """The mixer between its two projections: ``zxbcdt`` (B, S, 2 di + 2 n
-    + h), the whole in_proj output -> (the gated, normed y (B, S, di), the
-    new state), as :func:`mamba_layer` describes."""
-    B, S, _ = zxbcdt.shape
+def _gated_norm(gated, p, cfg):
+    """The mixer's RMS norm of y * silu(z), over each group's columns."""
+    G = cfg.ssm.n_groups
+    if G > 1:
+        return rms_norm(gated.unflatten(-1, (G, -1)),
+                        p["norm"].unflatten(-1, (G, -1)),
+                        cfg.norm_eps).flatten(-2)
+    return rms_norm(gated, p["norm"], cfg.norm_eps)
+
+
+def mixer_decode_step(zxbcdt, state, p, cfg):
+    """One token of the mixer between its projections, and the plain
+    version of the mixer decode kernel (``kernels/mixer_decode``):
+    ``zxbcdt`` (B, 1, 2 di + 2 n + h), ``state`` {"conv": (B, K-1, Ch),
+    "ssm": (B, H, P, N) float32} -> (the gated, normed y (B, 1, di), the
+    new state, in new tensors)."""
+    B = zxbcdt.shape[0]
     G = cfg.ssm.n_groups
     di, n, h = cfg.d_inner, G * cfg.ssm.d_state, cfg.ssm_heads
     P = cfg.ssm.head_dim
     z, xBC, dt = _split_proj(zxbcdt, cfg)
     A = -torch.exp(p["A_log"])                                 # (h,) negative
-    dt = F.softplus(dt.float() + p["dt_bias"])                 # (B, S, h)
+    dt = F.softplus(dt.float() + p["dt_bias"])                 # (B, 1, h)
+    window = torch.cat([state["conv"], xBC], dim=1)            # (B, K, Ch)
+    conv_out = torch.einsum("bkc,kc->bc", window, p["conv_w"]) \
+        + p["conv_b"]
+    xBC1 = F.silu(conv_out)[:, None, :]                        # (B, 1, Ch)
+    xh = xBC1[..., :di].reshape(B, h, P)
+    Bp = xBC1[:, 0, di:di + n]
+    Cp = xBC1[:, 0, di + n:]
+    if G > 1:
+        Bp, Cp = (t.unflatten(-1, (G, -1)) for t in (Bp, Cp))
+    dt1 = dt[:, 0]                                             # (B, h)
+    y, ssm_new = ssd_decode_step(xh * dt1[..., None].to(xh.dtype),
+                                 dt1 * A[None, :], Bp, Cp, state["ssm"])
+    y = (y + p["D"][None, :, None].float() * xh.float()).to(zxbcdt.dtype)
+    y = y.reshape(B, 1, di)
+    return _gated_norm(y * F.silu(z), p, cfg), {"conv": window[:, 1:, :],
+                                                "ssm": ssm_new}
+
+
+def _mixer(zxbcdt, p, cfg, *, state=None, use_kernel=False):
+    """The mixer between its two projections: ``zxbcdt`` (B, S, 2 di + 2 n
+    + h), the whole in_proj output -> (the gated, normed y (B, S, di), the
+    new state), as :func:`mamba_layer` describes. A decode step with
+    ``use_kernel`` runs through the mixer decode kernel's wrapper where
+    the kernel takes the config and dtype (``kernels.mixer_decode.ops.
+    takes``): on the card it updates the state's tensors in place and
+    returns them."""
+    B, S, _ = zxbcdt.shape
+    G = cfg.ssm.n_groups
+    di, n, h = cfg.d_inner, G * cfg.ssm.d_state, cfg.ssm_heads
+    P = cfg.ssm.head_dim
 
     if state is None:
+        z, xBC, dt = _split_proj(zxbcdt, cfg)
+        A = -torch.exp(p["A_log"])                             # (h,) negative
+        dt = F.softplus(dt.float() + p["dt_bias"])             # (B, S, h)
         if use_kernel:
             # the wrapper's module imports this one for its plain version
             from repro_torch.kernels.ssd.ops import ssd as scan
@@ -222,32 +270,15 @@ def _mixer(zxbcdt, p, cfg, *, state=None, use_kernel=False):
         tail = _split_proj(zxbcdt, cfg)[1][:, max(0, S - K1):, :]
         if S < K1:
             tail = F.pad(tail, (0, 0, K1 - S, 0))
-        new_state = {"conv": tail, "ssm": final}
-    else:
-        window = torch.cat([state["conv"], xBC], dim=1)        # (B, K, Ch)
-        conv_out = torch.einsum("bkc,kc->bc", window, p["conv_w"]) \
-            + p["conv_b"]
-        xBC1 = F.silu(conv_out)[:, None, :]                    # (B, 1, Ch)
-        xh = xBC1[..., :di].reshape(B, h, P)
-        Bp = xBC1[:, 0, di:di + n]
-        Cp = xBC1[:, 0, di + n:]
-        if G > 1:
-            Bp, Cp = (t.unflatten(-1, (G, -1)) for t in (Bp, Cp))
-        dt1 = dt[:, 0]                                         # (B, h)
-        y, ssm_new = ssd_decode_step(xh * dt1[..., None].to(xh.dtype),
-                                     dt1 * A[None, :], Bp, Cp, state["ssm"])
-        y = (y + p["D"][None, :, None].float() * xh.float()).to(
-            zxbcdt.dtype)
-        y = y.reshape(B, 1, h, P)
-        new_state = {"conv": window[:, 1:, :], "ssm": ssm_new}
-
-    y = y.reshape(B, S, di)
-    if G > 1:
-        # the gated norm over each group's columns
-        return rms_norm((y * F.silu(z)).unflatten(-1, (G, -1)),
-                        p["norm"].unflatten(-1, (G, -1)),
-                        cfg.norm_eps).flatten(-2), new_state
-    return rms_norm(y * F.silu(z), p["norm"], cfg.norm_eps), new_state
+        return (_gated_norm(y.reshape(B, S, di) * F.silu(z), p, cfg),
+                {"conv": tail, "ssm": final})
+    step = mixer_decode_step
+    if use_kernel:
+        # the wrapper's module imports this one for its plain version
+        from repro_torch.kernels.mixer_decode.ops import mixer_decode, takes
+        if takes(cfg, zxbcdt.dtype, zxbcdt.device):
+            step = mixer_decode
+    return step(zxbcdt, state, p, cfg)
 
 
 def mamba_layer_sharded(x, ps, cfg, gather, reduce, *, states=None,

@@ -523,8 +523,19 @@ class ServeStack:
     def mixer(self, x, i: int, states=None, use_kernel=False):
         """Layer ``i``'s Mamba2 mixer of the normed x (B, S, D) on the lead
         device: ``states`` each shard's own decode state (None: prefill).
-        Returns (out (B, S, D) on the lead device, each shard's new
-        state)."""
+        ``use_kernel``: the prefill's scans through ``ssd`` and the decode
+        step through the mixer decode kernel where it takes the config and
+        dtype; a decode step counts ``mixer_decode.kernel`` or ``.plain``
+        once an application. Returns (out (B, S, D) on the lead device,
+        each shard's new state: in a decode step through the kernel, the
+        given state's tensors, updated in place)."""
+        if states is not None:
+            # the wrapper's module imports the model modules for its plain
+            # version
+            from repro_torch.kernels.mixer_decode.ops import takes
+            kernel = use_kernel and takes(self.cfg, x.dtype, x.device)
+            RECORDER.count("mixer_decode.kernel" if kernel
+                           else "mixer_decode.plain")
         return mamba_layer_sharded(
             x, [self._lp(s, i)["mamba"] for s in range(self.n)], self.cfg,
             self.gather, self.reduce, states=states, use_kernel=use_kernel)

@@ -112,6 +112,7 @@ from repro_torch.distributed.sharding import ServeSharding
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention.ops import paged_flash_prefill
 from repro_torch.kernels.flash_attention.ref import paged_prefill_attention_ref
+from repro_torch.kernels.mixer_decode.ops import takes as mixer_kernel_takes
 from repro_torch.kernels.paged_attention.ops import (
     cached_workspace, fused_decode_attention_sharded, paged_attention_sharded,
     shardable_kv_heads)
@@ -365,15 +366,22 @@ class SlotBackend:
         self._dec_st = None         # device-resident per-slot decode state
         self._live = 0              # its active slots (the decode.issue attr)
         # the fused decode loop; a replay counts what the recorded
-        # iteration counted, for each application of a tied block
+        # iteration counted, for each application of a tied block and
+        # each mixer
         apps = len(cfg.hybrid_layer_ids)
         tier = "kernel" if use_kernel else "plain"
+        counts = {"shared_block.apps": apps,
+                  f"slot_decode_attn.{tier}": apps} if apps else {}
+        if cfg.family not in ATTENTION_FAMILIES:
+            mixer = use_kernel and mixer_kernel_takes(cfg, self.dtype,
+                                                      self.device)
+            counts[f"mixer_decode.{'kernel' if mixer else 'plain'}"] = \
+                cfg.num_layers
         self._graph = _StepGraph(
             self.device, max_slots, self._iteration,
             capture=_captures_decode(cfg, use_kernel, self.shard,
                                      self.device, paged=False),
-            counts={"shared_block.apps": apps,
-                    f"slot_decode_attn.{tier}": apps} if apps else None)
+            counts=counts)
 
     def _put(self, site: str, x, dtype=None):
         """Host array -> tensor on the backend's device; ``site`` names

@@ -4,9 +4,10 @@ was, ``flash_attention`` with a softmax scale, rotate-half RoPE, the
 parameter counts against the tree ``init_params`` makes, the slot
 backend's decode-graph buffers against its eager loop, and the new
 records, the slot backend's kernel tier against its reference tier and
-the count of its decode attention; on the card (``-m card``,
-``--noconftest``), the slot decode graph replayed against the eager loop,
-and its replays' launches and counts of the slot decode kernel.
+the counts of its decode attention and its mixers; on the card (``-m
+card``, ``--noconftest``), the slot decode graph replayed against the eager
+loop, and its replays' launches and counts of the slot decode kernel and
+the mixer decode kernel.
 
 Tolerances: a grouped scan against one-group scans over each group's
 heads, 1e-5 of the scale (float32, the same products summed in another
@@ -263,9 +264,10 @@ def test_slot_decode_attention_is_counted_per_application(tiny_params,
                                                           use_kernel,
                                                           graphable):
     """``slot_decode_attn.kernel`` (kernel tier) or ``.plain`` once for
-    each application of a tied block in each decode iteration issued op by
-    op; with ``graphable`` the counts the loop hands to a replay are what
-    each of those iterations counted."""
+    each application of a tied block, and ``mixer_decode.plain`` once for
+    each mixer, in each decode iteration issued op by op; with
+    ``graphable`` the counts the loop hands to a replay are what each of
+    those iterations counted."""
     eng = ContinuousBatchingEngine(
         make_model(TINY), tiny_params,
         EngineConfig(backend="slots", use_kernel=use_kernel, max_slots=4,
@@ -285,10 +287,14 @@ def test_slot_decode_attention_is_counted_per_application(tiny_params,
     assert iters > 0
     assert c[f"slot_decode_attn.{tier}"] == apps * iters
     assert f"slot_decode_attn.{other}" not in c
+    # CPU tensors step every mixer by the plain version, on either tier
+    assert c["mixer_decode.plain"] == TINY.num_layers * iters
+    assert "mixer_decode.kernel" not in c
     if graphable:
         counts = eng.backend._graph.counts
         assert counts == {"shared_block.apps": apps,
-                          f"slot_decode_attn.{tier}": apps}
+                          f"slot_decode_attn.{tier}": apps,
+                          "mixer_decode.plain": TINY.num_layers}
         assert c[f"slot_decode_attn.{tier}"] \
             == counts[f"slot_decode_attn.{tier}"] * iters
 
@@ -300,14 +306,20 @@ def card():
     return torch.device("cuda", 0)
 
 
+# head and state sizes the kernels take (flash: 64; ssd and the mixer
+# decode kernel: 64 and 64)
+CARD = dataclasses.replace(
+    TINY, param_dtype="bfloat16", head_dim=64, num_heads=2, num_kv_heads=2,
+    ssm=dataclasses.replace(TINY.ssm, d_state=64, head_dim=64))
+
+
 @pytest.mark.card
 def test_card_slot_graph_replay_matches_eager(card):
-    # head and state sizes the kernels take (flash: 64; ssd: 64 and 64)
-    cfg = dataclasses.replace(
-        TINY, param_dtype="bfloat16", head_dim=64, num_heads=2,
-        num_kv_heads=2,
-        ssm=dataclasses.replace(TINY.ssm, d_state=64, head_dim=64))
-    model = make_model(cfg)
+    """The slot graph, its mixers through the mixer decode kernel,
+    serves the eager kernel loop's tokens and leaves its bits in the
+    cache."""
+    from repro_torch.kernels import _build
+    model = make_model(CARD)
     params = model.init_params(torch.Generator(device=card).manual_seed(0))
     runs = []
     for graphable in (True, False):
@@ -318,21 +330,27 @@ def test_card_slot_graph_replay_matches_eager(card):
             device=card)
         assert eng.backend._graph.capture
         eng.backend._graph.capture = graphable
+        _build.reset_launches()
         runs.append((_serve(eng), eng.backend))
-    (got, be), (want, _) = runs
+        assert _build.LAUNCHES["mixer_decode"] > 0
+    (got, be), (want, eager) = runs
     assert got == want
     assert be._graph.graph is not None
+    for key in ("conv", "ssm", "k", "v"):
+        assert torch.equal(be.cache[key], eager.cache[key])
 
 
 @pytest.mark.card
-def test_card_slot_graph_replays_count_the_kernel(card):
+@pytest.mark.parametrize("layout", ["tiny", "published"])
+def test_card_slot_graph_replays_count_the_kernel(card, layout):
     """The replayed iterations launch the slot decode kernel once an
-    application, and count it as the eager iteration does."""
+    application and the mixer decode kernel once a layer (81 an iteration
+    at the published layout, at small widths), and count them as the eager
+    iteration does."""
     from repro_torch.kernels import _build
-    cfg = dataclasses.replace(
-        TINY, param_dtype="bfloat16", head_dim=64, num_heads=2,
-        num_kv_heads=2,
-        ssm=dataclasses.replace(TINY.ssm, d_state=64, head_dim=64))
+    cfg = CARD if layout == "tiny" else dataclasses.replace(
+        ZAMBA2_7B, name=TINY.name, d_model=64, num_heads=2, num_kv_heads=2,
+        head_dim=64, d_ff=128, vocab_size=256, adapter_rank=8)
     model = make_model(cfg)
     params = model.init_params(torch.Generator(device=card).manual_seed(0))
     eng = ContinuousBatchingEngine(
@@ -355,3 +373,8 @@ def test_card_slot_graph_replays_count_the_kernel(card):
     assert c["slot_decode_attn.kernel"] == apps * iters
     assert "slot_decode_attn.plain" not in c
     assert _build.LAUNCHES["slot_decode_attention"] == apps * iters
+    assert eng.backend._graph.counts["mixer_decode.kernel"] \
+        == cfg.num_layers
+    assert c["mixer_decode.kernel"] == cfg.num_layers * iters
+    assert "mixer_decode.plain" not in c
+    assert _build.LAUNCHES["mixer_decode"] == cfg.num_layers * iters
